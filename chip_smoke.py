@@ -5,15 +5,26 @@ Phases, one line each (details on stderr):
   1. device   the card, and its name and power limit from nvidia-smi;
   2. build    nvcc builds every kernel of tpujoin_torch/csrc;
   3. kernels  each kernel against its plain PyTorch version on the card, on
-              the inputs the main path gives it (the slice's keys, sorted,
-              counted, compacted): bitwise equality, and the time of both
-              (CUDA events, the minimum of 5 runs after a warm-up); then K1
-              on a ragged width with the i32 extremes, and a small join
-              checked against the native oracle;
-  4. slice    ref_low_selectivity (100M x 100M at --scale 1.0) through
-              tpujoin_torch.bench, every pair checked by the native oracle,
-              and every kernel's launch counter above 0 for that run.
-Then one JSON line of per-kernel results, the wall time, and last the line
+              the inputs the main paths give it, bitwise, and the time of
+              both (CUDA events, the minimum of 5 runs after a warm-up):
+              K1-K4 on ref_low_selectivity's keys (sorted, counted,
+              compacted), then K1 on a ragged width with the i32 extremes
+              and a small join checked against the native oracle; K5 and
+              K7 (expand_fill, expand_groups, expand_runs) on
+              ref_high_selectivity's count state at its full capacity
+              (~1e9 slots), and probe_materialize_groups on that state,
+              which is expand_groups' path;
+  4. runs     a 4096 x 4096 join with ~16 matches per row through
+              merge_join on the card: the runs path (expand_runs), checked
+              against the oracle and the CPU path;
+  5. slices   ref_low_selectivity (100M x 100M at --scale 1.0) and
+              ref_high_selectivity (10M x 10M, ~1e9 pairs, full size)
+              through tpujoin_torch.bench, every pair checked (the native
+              oracle; for the dense slice the RLE oracle and window
+              checksums of every slot), and each path's kernels' launch
+              counters above 0 for that run, from 0 just before it.
+Then one JSON line of per-kernel results (times, launches, the bound from
+this run's shapes), the wall time, and last the line
 {"ok": true, "device": {...}}. Any failure exits non-zero before it; there
 is no CPU path.
 
@@ -32,12 +43,19 @@ import numpy as np
 import torch
 
 from tpujoin_torch import bench, merge_join, oracle
-from tpujoin_torch.core.datagen import make_keys
-from tpujoin_torch.kernels import (_build, compact, expand, merge_count,
+from tpujoin_torch.kernels import (_build, compact, expand, expand_fill,
+                                   expand_groups, expand_runs, merge_count,
                                    merge_sort)
+from tpujoin_torch.ops import merge_join as mj
+from tpujoin_torch.ops.hash_join import build
 from tpujoin_torch.utils.shapes import round_up
 
 IMAX = 2**31 - 1
+CHUNK = 1 << 26              # elements per step of the kernel/plain compare
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3, NVIDIA's data sheet
+# the data sheet's fp32 rate outside the tensor cores: it lists no i32
+# rate, and these kernels' compares and adds are i32
+OPS_PER_S = 67e12
 
 
 def say(phase: str, msg: str) -> None:
@@ -61,15 +79,17 @@ def cuda_ms(fn, reps: int = 5) -> float:
 
 
 def max_abs_err(got, want) -> int:
-    """Largest |got - want| over paired output columns; raises on a shape
-    mismatch."""
+    """Largest |got - want| over paired output columns, CHUNK elements at a
+    time (a 1e9-slot column would need 8 GB per int64 temporary); raises on
+    a shape mismatch."""
     err = 0
     for g, w in zip(got, want, strict=True):
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"shape/dtype {tuple(g.shape)} {g.dtype} "
                                  f"vs {tuple(w.shape)} {w.dtype}")
-        if g.numel():
-            err = max(err, int((g.long() - w.long()).abs().max()))
+        for a in range(0, g.numel(), CHUNK):
+            d = g[a:a + CHUNK].long() - w[a:a + CHUNK].long()
+            err = max(err, int(d.abs().max()))
     return err
 
 
@@ -86,29 +106,31 @@ def check_kernel(name: str, run, plain, results: dict) -> None:
     say("kernels", f"{name}: exact; {ms:.3f} ms (plain {plain_ms:.3f} ms)")
 
 
-def main_path_keys(dev, cfg):
-    """The build and probe keys of ``cfg``, made as tpujoin_torch.bench
-    makes them (same generator, seed and order)."""
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.seed)
-    return tuple(make_keys(gen, n, cfg.key_min, cfg.key_max, cfg.distribution,
-                           cfg.zipf_s)
-                 for n in (cfg.build_rows, cfg.probe_rows))
+def bound(results: dict, name: str, nbytes: float, ops: float) -> None:
+    """Record the least time the card could take for ``name``'s work: the
+    larger of its bytes (each input read once, each output written once)
+    over the HBM rate and its operations over the op rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / OPS_PER_S * 1e3
+    results[name].update(
+        bound_ms=max(by_bytes, by_ops),
+        bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
 def kernels_phase(dev, cfg, results: dict) -> None:
-    """Each kernel against its plain version on the inputs the main path
-    gives it for ``cfg``: both sorts of the keys, the count of the sorted
+    """K1-K4 against their plain versions on the inputs the main path
+    gives them for ``cfg``: both sorts of the keys, the count of the sorted
     probe keys in the sorted build keys, and the compaction and expansion
     of that count state; then K1 on a ragged width with the i32 extremes,
     and a small join against the oracle."""
-    bk, pk = main_path_keys(dev, cfg)
+    bk, pk = bench.config_keys(cfg, dev)
     n = bk.shape[0]
     ids = torch.arange(n, dtype=torch.int32, device=dev)
     tile = merge_sort.TILE
     check_kernel("block_sort", lambda: merge_sort.block_sort(bk, ids),
                  lambda: merge_sort.segment_sort_plain(bk, ids, tile),
                  results)
+    bound(results, "block_sort", 16 * n, n * math.log2(tile))
     # the sort's last merge pass: runs of `run` into one of up to 2 * run
     run = tile
     while 2 * run < n:
@@ -117,6 +139,7 @@ def kernels_phase(dev, cfg, results: dict) -> None:
     check_kernel("merge_pass", lambda: merge_sort.merge_pass(kr, ir, run),
                  lambda: merge_sort.segment_sort_plain(kr, ir, 2 * run),
                  results)
+    bound(results, "merge_pass", 16 * n, n)
     del kr, ir
     err = max_abs_err(merge_sort.sort_pairs(bk, ids),
                       merge_sort.sort_pairs_plain(bk, ids))
@@ -125,7 +148,9 @@ def kernels_phase(dev, cfg, results: dict) -> None:
     say("kernels", f"sort_pairs n={n}: exact; "
         f"{cuda_ms(lambda: merge_sort.sort_pairs(bk, ids)):.3f} ms "
         f"(torch.sort + gather "
-        f"{cuda_ms(lambda: merge_sort.sort_pairs_plain(bk, ids)):.3f} ms); "
+        f"{cuda_ms(lambda: merge_sort.sort_pairs_plain(bk, ids)):.3f} ms; "
+        f"one torch.sort(stable=True), whose indices are the ids here, "
+        f"{cuda_ms(lambda: torch.sort(bk, stable=True)):.3f} ms); "
         f"last merge pass run {run}")
     bsk, _ = merge_sort.sort_pairs(bk, ids)
     m = pk.shape[0]
@@ -138,6 +163,7 @@ def kernels_phase(dev, cfg, results: dict) -> None:
     check_kernel("merge_count",
                  lambda: merge_count.merge_count(bsk, psk),
                  lambda: merge_count.merge_count_plain(bsk, psk), results)
+    bound(results, "merge_count", 4 * n + 12 * m, n + m)
     lo, cnt = merge_count.merge_count(bsk, psk)
     del bsk, psk
     total, nonzero = int(cnt.sum(dtype=torch.int64)), int((cnt > 0).sum())
@@ -147,6 +173,7 @@ def kernels_phase(dev, cfg, results: dict) -> None:
                  lambda: compact.compact3(lo, cnt, psid, k_cap),
                  lambda: compact.compact3_plain(lo, cnt, psid, k_cap),
                  results)
+    bound(results, "compact3", 12 * m + 12 * k_cap, m)
     lo_c, cnt_c, sid_c = compact.compact3(lo, cnt, psid, k_cap)
     del lo, cnt, psid
     offs = torch.cumsum(cnt_c, 0, dtype=torch.int32) - cnt_c
@@ -154,6 +181,7 @@ def kernels_phase(dev, cfg, results: dict) -> None:
                  lambda: expand.expand(offs, lo_c, sid_c, capacity),
                  lambda: expand.expand_plain(offs, lo_c, sid_c, capacity),
                  results)
+    bound(results, "expand", 12 * k_cap + 8 * capacity, capacity)
     say("kernels", f"main-path widths: {n} x {m} keys, nonzero={nonzero} "
         f"k_cap={k_cap} total={total} capacity={capacity}")
     del lo_c, cnt_c, sid_c, offs
@@ -188,47 +216,163 @@ def kernels_phase(dev, cfg, results: dict) -> None:
     r, s = merge_join(torch.from_numpy(bk).to(dev),
                       torch.from_numpy(pk).to(dev), probe_chunk_rows=1500,
                       result_pad_multiple=1024)
-    r_cpu, s_cpu = merge_join(bk, pk, probe_chunk_rows=1500,
+    r_cpu, s_cpu = merge_join(bk, pk, device="cpu", probe_chunk_rows=1500,
                               result_pad_multiple=1024)
-    same = np.array_equal(np.sort(r.astype(np.int64) << 32 | s),
-                          np.sort(r_cpu.astype(np.int64) << 32 | s_cpu))
-    if oracle.check_join(bk, pk, r, s) != 1 or not same:
+    if oracle.check_join(bk, pk, r, s) != 1 or not same_pairs(r, s, r_cpu,
+                                                              s_cpu):
         raise AssertionError("small join on the card fails the oracle")
     say("kernels", f"small join 4096 x 4096: {len(r)} pairs, oracle PASS")
 
 
-COUNTERS = (("block_sort", merge_sort, "LAUNCHES"),
-            ("merge_pass", merge_sort, "MERGE_LAUNCHES"),
-            ("merge_count", merge_count, "LAUNCHES"),
-            ("compact3", compact, "LAUNCHES"),
-            ("expand", expand, "LAUNCHES"))
+def same_pairs(r, s, r2, s2) -> bool:
+    """Whether two numpy pair columns hold the same pair multiset."""
+    return np.array_equal(np.sort(r.astype(np.int64) << 32 | s),
+                          np.sort(r2.astype(np.int64) << 32 | s2))
 
 
-def slice_phase(dev, cfg, results: dict) -> None:
-    for _, mod, attr in COUNTERS:
+def dense_kernels_phase(dev, cfg, results: dict) -> None:
+    """K5 and K7 against their plain versions on the inputs the dense path
+    gives them for ``cfg``: its keys sorted and counted, the RLE form and
+    group heads, at the full capacity; then probe_materialize_groups on
+    that state, expand_groups' path, counted and held against fill's
+    columns."""
+    bk, pk = bench.config_keys(cfg, dev)
+    ht = build(bk)
+    state, total, nonzero = mj.probe_count(ht, pk)
+    total, nonzero, m = int(total), int(nonzero), pk.shape[0]
+    del bk, pk
+    k_cap, cap = round_up(nonzero, 1 << 20), round_up(total, 1 << 20)
+    all_matched = nonzero == m
+    lo_c, cnt_c, sid_c, offs_c = mj._compact(state, k_cap, all_matched)
+    goff, glo, gnb, ngroups = mj._group_heads(lo_c, cnt_c, offs_c, k_cap,
+                                              nonzero)
+    src = ht.sorted_ids
+    fill_args = (offs_c, sid_c, goff, glo, gnb, src, nonzero, ngroups,
+                 total, cap)
+    runs_args = (offs_c, lo_c, sid_c, src, nonzero, total, cap)
+    check_kernel("expand_fill", lambda: expand_fill.expand_fill(*fill_args),
+                 lambda: expand_fill.expand_fill_plain(*fill_args), results)
+    check_kernel("expand_groups",
+                 lambda: expand_groups.expand_groups(*fill_args),
+                 lambda: expand_groups.expand_groups_plain(*fill_args),
+                 results)
+    check_kernel("expand_runs", lambda: expand_runs.expand_runs(*runs_args),
+                 lambda: expand_runs.expand_runs_plain(*runs_args), results)
+    src_read = int(gnb[:ngroups].sum())   # the build ids the groups cover
+    for name in ("expand_fill", "expand_groups"):
+        bound(results, name,
+              8 * nonzero + 12 * ngroups + 4 * src_read + 8 * cap, cap)
+    bound(results, "expand_runs", 12 * nonzero + 4 * src_read + 8 * cap, cap)
+    say("kernels", f"dense widths: {ht.num_rows} x {m} keys, nonzero="
+        f"{nonzero} k_cap={k_cap} groups={ngroups} total={total} "
+        f"capacity={cap}, compaction "
+        f"{'identity' if all_matched else 'compact3'}")
+    del lo_c, cnt_c, sid_c, offs_c, goff, glo, gnb
+
+    kw = {"total": total, "nonzero": nonzero}
+    expand_groups.LAUNCHES = 0
+    r, s, _, fits = mj.probe_materialize_groups(ht, state, k_cap, cap, **kw)
+    launches = expand_groups.LAUNCHES
+    if not bool(fits) or launches <= 0:
+        raise AssertionError(f"probe_materialize_groups: fits {bool(fits)}, "
+                             f"{launches} expand_groups launches")
+    fill = mj.probe_materialize_fill(ht, state, k_cap, cap,
+                                     all_matched=all_matched, **kw)
+    if max_abs_err((r, s), fill[:2]):
+        raise AssertionError("probe_materialize_groups differs from fill")
+    results["expand_groups"]["launches"] = launches
+    say("kernels", f"probe_materialize_groups on the dense state: {launches} "
+        f"expand_groups launch(es), equal to probe_materialize_fill")
+
+
+COUNTERS = {"block_sort": (merge_sort, "LAUNCHES"),
+            "merge_pass": (merge_sort, "MERGE_LAUNCHES"),
+            "merge_count": (merge_count, "LAUNCHES"),
+            "compact3": (compact, "LAUNCHES"),
+            "expand": (expand, "LAUNCHES"),
+            "expand_fill": (expand_fill, "LAUNCHES"),
+            "expand_groups": (expand_groups, "LAUNCHES"),
+            "expand_runs": (expand_runs, "LAUNCHES")}
+
+
+def zero_counters() -> None:
+    for mod, attr in COUNTERS.values():
         setattr(mod, attr, 0)
+
+
+def read_counters() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+
+
+def runs_phase(dev, results: dict) -> None:
+    """A join whose duplication (~16 matches per row) lands on the runs
+    path, through merge_join with numpy keys (so on the card by default):
+    the oracle, the CPU path and the expand_runs launches."""
+    rng = np.random.default_rng(2)
+    bk = rng.integers(1, 257, 4096).astype(np.int32)
+    pk = rng.integers(1, 257, 4096).astype(np.int32)
+    ht = build(torch.from_numpy(bk).to(dev))
+    state, total, nonzero = mj.probe_count(ht, torch.from_numpy(pk).to(dev))
+    total, nonzero = int(total), int(nonzero)
+    name, _, _ = mj.plan_materialize(ht, state, round_up(nonzero, 1024),
+                                     round_up(total, 1024), total=total,
+                                     nonzero=nonzero)
+    if name != "runs":
+        raise AssertionError(f"the runs-path join planned {name!r}")
+    zero_counters()
+    r, s = merge_join(bk, pk, result_pad_multiple=1024)
+    launches = read_counters()["expand_runs"]
+    r_cpu, s_cpu = merge_join(bk, pk, device="cpu", result_pad_multiple=1024)
+    if oracle.check_join(bk, pk, r, s) != 1 or not same_pairs(r, s, r_cpu,
+                                                              s_cpu):
+        raise AssertionError("runs-path join fails the oracle")
+    if launches <= 0:
+        raise AssertionError("runs-path join launched no expand_runs")
+    results["expand_runs"]["launches"] = launches
+    say("runs", f"4096 x 4096, keys 1..256: plan {name!r}, {len(r)} pairs, "
+        f"oracle PASS, equal to the CPU path; {launches} expand_runs "
+        f"launch(es)")
+
+
+def slice_phase(dev, cfg, results: dict, path: tuple, record: tuple):
+    """``cfg`` through tpujoin_torch.bench with every pair verified, the
+    counters from 0 just before; every kernel of ``path`` must have
+    launched, and those of ``record`` keep their counts."""
+    zero_counters()
     out = bench.bench_join(cfg, verify=True, device=dev)
-    launches = {name: getattr(mod, attr) for name, mod, attr in COUNTERS}
+    launches = read_counters()
     print(json.dumps(out), flush=True)
-    say("slice", f"{cfg.build_rows} x {cfg.probe_rows}: build "
-        f"{out['build_seconds']:.6f} s, count {out['count_seconds']:.6f} s, "
-        f"materialize {out['materialize_seconds']:.6f} s, "
+    say("slice", f"{cfg.name} {cfg.build_rows} x {cfg.probe_rows}: "
+        f"build {out['build_seconds']:.6f} s, count "
+        f"{out['count_seconds']:.6f} s, materialize "
+        f"{out['materialize_seconds']:.6f} s, "
         f"{out['probe_rows_per_sec']:.0f} probe rows/s, "
         f"{out['result_rows']} pairs, launches {launches}")
     if out["verified"] is not True:
-        raise AssertionError("slice result fails the oracle's multiset check")
+        raise AssertionError(f"{cfg.name}: result fails the oracle")
     if not out["result_rows"] > 0:
-        raise AssertionError("slice produced no pairs")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"{name}: no launch during the slice")
-        results[name]["launches"] = count
+        raise AssertionError(f"{cfg.name}: no pairs")
+    for name in path:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name}: no launch during {cfg.name}")
+    for name in record:
+        results[name]["launches"] = launches[name]
+    return out
+
+
+def check_dense_slice(out: dict) -> None:
+    """The dense slice materialized every pair on fill and checked each."""
+    if out.get("pair_kernel") != "fill":
+        raise AssertionError(f"dense slice took {out.get('pair_kernel')!r}")
+    if out.get("pairs_checked") != out["result_rows"]:
+        raise AssertionError(f"dense slice checked {out.get('pairs_checked')}"
+                             f" of {out['result_rows']} pairs")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="tpujoin_torch smoke run")
     ap.add_argument("--scale", type=float, default=1.0,
-                    help="row-count scale of the slice phase's config")
+                    help="row-count scale of the low-selectivity slice")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -260,18 +404,40 @@ def main(argv=None) -> int:
                      "replaces": "tpujoin/kernels/compact.py:217"},
         "expand": {"source": src + "expand.cu",
                    "replaces": "tpujoin/kernels/expand.py:111"},
+        "expand_fill": {"source": src + "expand_pairs.cu",
+                        "replaces": "tpujoin/kernels/expand_fill.py:208"},
+        "expand_groups": {"source": src + "expand_pairs.cu",
+                          "replaces": "tpujoin/kernels/expand_groups.py:264"},
+        "expand_runs": {"source": src + "expand_pairs.cu",
+                        "replaces": "tpujoin/kernels/expand_runs.py:131"},
     }
-    cfg = bench.scaled_config("ref_low_selectivity", args.scale)
-    kernels_phase(dev, cfg, results)
-    torch.cuda.empty_cache()
-    slice_phase(dev, cfg, results)
+    low = bench.scaled_config("ref_low_selectivity", args.scale)
+    high = bench.scaled_config("ref_high_selectivity")
+    phases = (
+        lambda: kernels_phase(dev, low, results),
+        lambda: dense_kernels_phase(dev, high, results),
+        lambda: runs_phase(dev, results),
+        lambda: slice_phase(dev, low, results, path=(
+            "block_sort", "merge_pass", "merge_count", "compact3", "expand"),
+            record=("block_sort", "merge_pass", "merge_count", "compact3",
+                    "expand")),
+        lambda: check_dense_slice(slice_phase(dev, high, results, path=(
+            "block_sort", "merge_pass", "merge_count", "expand_fill"),
+            record=("expand_fill",))),
+    )
+    for phase in phases:
+        t0 = time.perf_counter()
+        phase()
+        torch.cuda.empty_cache()
+        say("time", f"{time.perf_counter() - t0:.3f} s")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"],
          "replaces": r["replaces"], "launches": r["launches"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]} for name, r in results.items()]}),
-        flush=True)
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": None}
+        for name, r in results.items()]}), flush=True)
     say("wall", f"{time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

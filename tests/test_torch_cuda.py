@@ -13,7 +13,9 @@ import torch
 
 import tpujoin_torch
 from tpujoin_torch import oracle
-from tpujoin_torch.kernels import compact, expand, merge_count, merge_sort
+from tpujoin_torch.kernels import (compact, expand, expand_fill,
+                                   expand_groups, expand_runs, merge_count,
+                                   merge_sort)
 
 pytestmark = pytest.mark.skipif(
     "not torch.cuda.is_available()",
@@ -102,6 +104,68 @@ def test_expand_kernel(k, max_count):
            expand.expand_plain(*cols, total + 1000))
 
 
+def _rle_state(ngroups: int, seed: int):
+    """A random RLE state as probe_count and the group heads leave it:
+    ``ngroups`` groups of 1-50 runs over a build slice of 1-300 ids each,
+    padded past the real rows (runs: offset == total; groups: INT32_MAX)."""
+    rng = np.random.default_rng(seed)
+    gnb = rng.integers(1, 301, ngroups)
+    gnp = rng.integers(1, 51, ngroups)
+    glo = np.cumsum(gnb + rng.integers(0, 4, ngroups)) - gnb
+    n = int(glo[-1] + gnb[-1]) + 7 if ngroups else 16
+    cnt = np.repeat(gnb, gnp)
+    lo = np.repeat(glo, gnp)
+    offs = np.cumsum(cnt) - cnt
+    total = int(cnt.sum())
+    goff = offs[np.concatenate([[0], np.cumsum(gnp)[:-1]])] if ngroups else []
+
+    def col(vals, pad, fill):
+        return torch.tensor(np.concatenate([vals, np.full(pad, fill)]),
+                            dtype=torch.int32, device="cuda")
+
+    k = len(cnt)
+    runs = dict(roff=col(offs, 9, total), lo=col(lo, 9, 0),
+                sid=col(rng.permutation(k), 9, 0))
+    groups = dict(goff=col(goff, 5, IMAX), glo=col(glo, 5, 0),
+                  gnb=col(gnb, 5, 0))
+    src = torch.from_numpy(rng.permutation(n).astype(np.int32)).cuda()
+    return runs, groups, src, k, ngroups, total
+
+
+@pytest.mark.parametrize("ngroups,extra", [(1, 0), (7, 3), (300, 1001),
+                                           (20_000, 5), (0, 100)])
+def test_expand_pair_kernels(ngroups, extra):
+    """K5, K7a and K7b against their plain versions on random RLE states,
+    at ragged capacities and at total = 0."""
+    runs, groups, src, k, ng, total = _rle_state(ngroups, ngroups + extra)
+    cap = total + extra
+    fill_args = (runs["roff"], runs["sid"], groups["goff"], groups["glo"],
+                 groups["gnb"], src, k, ng, total, cap)
+    runs_args = (runs["roff"], runs["lo"], runs["sid"], src, k, total, cap)
+    before = (expand_fill.LAUNCHES, expand_groups.LAUNCHES,
+              expand_runs.LAUNCHES)
+    fill = expand_fill.expand_fill(*fill_args)
+    _equal(fill, expand_fill.expand_fill_plain(*fill_args))
+    _equal(expand_groups.expand_groups(*fill_args),
+           expand_groups.expand_groups_plain(*fill_args))
+    got = expand_runs.expand_runs(*runs_args)
+    _equal(got, expand_runs.expand_runs_plain(*runs_args))
+    _equal(got, fill)   # the same pairs, from runs or from groups
+    assert (fill[0][total:] == -1).all() and (fill[1][total:] == -1).all()
+    assert (expand_fill.LAUNCHES, expand_groups.LAUNCHES,
+            expand_runs.LAUNCHES) == tuple(b + (cap > 0) for b in before)
+
+
+def test_merge_join_defaults_to_the_card():
+    rng = np.random.default_rng(1)
+    bk = rng.integers(1, 257, 4096).astype(np.int32)
+    pk = rng.integers(1, 257, 4096).astype(np.int32)
+    before = expand_runs.LAUNCHES
+    r, s = tpujoin_torch.merge_join(bk, pk, result_pad_multiple=1024)
+    assert expand_runs.LAUNCHES == before + 1   # ~16 matches/row: runs
+    assert oracle.check_join(bk, pk, r, s) == 1
+
+
 @pytest.mark.parametrize("chunk", [None, 5000])
 def test_merge_join_on_card_matches_cpu(chunk):
     rng = np.random.default_rng(0)
@@ -110,7 +174,7 @@ def test_merge_join_on_card_matches_cpu(chunk):
     kw = {"probe_chunk_rows": chunk, "result_pad_multiple": 1024}
     r, s = tpujoin_torch.merge_join(torch.from_numpy(bk).cuda(),
                                     torch.from_numpy(pk).cuda(), **kw)
-    cr, cs = tpujoin_torch.merge_join(bk, pk, **kw)
+    cr, cs = tpujoin_torch.merge_join(bk, pk, device="cpu", **kw)
 
     def pairs(a, b):
         return np.sort(a.astype(np.int64) << 32 | b.astype(np.int64))

@@ -123,7 +123,7 @@ def test_merge_join_matches_jax(case):
         if case == "low_sel_chunked":
             kw["probe_chunk_rows"] = 5000   # 4 chunks, the last ragged
     jr, js = tpujoin.merge_join(bk, pk, **kw)
-    r, s = tpujoin_torch.merge_join(bk, pk, **kw)
+    r, s = tpujoin_torch.merge_join(bk, pk, device="cpu", **kw)
     assert r.dtype == s.dtype == np.int32
     np.testing.assert_array_equal(_pairs(r, s), _pairs(jr, js))
     assert oracle.check_join(bk, pk, r, s) == 1
@@ -131,8 +131,9 @@ def test_merge_join_matches_jax(case):
 
 def test_merge_join_empty_and_disjoint():
     e = np.empty(0, np.int32)
-    r, s = tpujoin_torch.merge_join(e, e)
+    r, s = tpujoin_torch.merge_join(e, e, device="cpu")
     assert r.shape == s.shape == (0,)
     r, s = tpujoin_torch.merge_join(np.arange(1, 100, dtype=np.int32),
-                                    np.arange(200, 300, dtype=np.int32))
+                                    np.arange(200, 300, dtype=np.int32),
+                                    device="cpu")
     assert r.shape == s.shape == (0,)

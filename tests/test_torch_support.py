@@ -102,12 +102,15 @@ def test_bench_runs_test_small_on_cpu():
         "hbm_peak_gbps", "verified"}
 
 
-def test_bench_refuses_unported_config_and_scales():
-    with pytest.raises(NotImplementedError):
-        bench.bench_join(config.PRESETS["ref_high_selectivity"], False,
-                         device="cpu")
-    with pytest.raises(NotImplementedError):
-        profile.profile_join(config.PRESETS["ref_high_selectivity"])
+def test_bench_refuses_unported_config_and_scales(monkeypatch):
+    """No preset is refused any more: the high-selectivity config goes to
+    the dense bench (stubbed here; it runs at full size on the card)."""
+    calls = []
+    monkeypatch.setattr(bench, "bench_join_dense",
+                        lambda cfg, verify, device: calls.append(cfg.name))
+    bench.bench_join(config.PRESETS["ref_high_selectivity"], False,
+                     device="cpu")
+    assert calls == ["ref_high_selectivity"]
     cfg = bench.scaled_config("ref_low_selectivity", 0.01)
     assert (cfg.build_rows, cfg.probe_rows) == (1_000_000, 1_000_000)
 
@@ -122,7 +125,9 @@ def test_port_imports_without_jax():
             "import tpujoin_torch, tpujoin_torch.bench, tpujoin_torch.oracle, "
             "tpujoin_torch.profile\n"
             "from tpujoin_torch.kernels import _build, compact, expand, "
-            "merge_count, merge_sort\n"
+            "expand_fill, expand_groups, expand_runs, merge_count, "
+            "merge_sort\n"
+            "from tpujoin_torch.utils import verify\n"
             "assert 'tpujoin' not in sys.modules\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr

@@ -36,6 +36,8 @@ _SIGNATURES = {
     "tj_compact_count": (P, I64, P, P),
     "tj_compact_scatter": (P, P, P, I64, P, P, P, P, P, I64, P),
     "tj_expand": (P, P, P, I64, P, P, I64, P),
+    "tj_expand_fill": (P, P, I64, P, P, P, I64, P, I64, I64, P, P, I64, P),
+    "tj_expand_runs": (P, P, P, I64, P, I64, I64, P, P, I64, P),
 }
 
 _lib: ctypes.CDLL | None = None

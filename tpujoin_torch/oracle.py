@@ -36,6 +36,10 @@ def _load() -> ctypes.CDLL:
         lib.oracle_check.argtypes = [i32p, ctypes.c_int64, i32p,
                                      ctypes.c_int64, i32p, i32p,
                                      ctypes.c_int64, ctypes.c_int]
+        lib.oracle_check_rle.restype = ctypes.c_int
+        lib.oracle_check_rle.argtypes = [i32p, ctypes.c_int64, i32p,
+                                         ctypes.c_int64, i32p, i32p, i32p,
+                                         i32p, ctypes.c_int64]
         _lib = lib
     return _lib
 
@@ -66,3 +70,18 @@ def check_join(r_keys, s_keys, res_r, res_s, *, nested: bool = False) -> int:
     return int(_load().oracle_check(_ptr(r), len(r), _ptr(s), len(s),
                                     _ptr(rr), _ptr(rs), len(rr),
                                     int(nested)))
+
+
+def check_join_rle(r_keys, s_keys, sorted_build_ids, probe_ids, lo,
+                   cnt) -> int:
+    """Check a factorized (RLE) join result: for each row r, the build-id
+    run sorted_build_ids[lo[r]:lo[r] + cnt[r]] must be probe row
+    probe_ids[r]'s exact match multiset, and unlisted probe rows must have
+    no match. 1 = ok, 0 = mismatch, -1 = size mismatch."""
+    r, s, sbi = _i32(r_keys), _i32(s_keys), _i32(sorted_build_ids)
+    pid, lo_a, cnt_a = _i32(probe_ids), _i32(lo), _i32(cnt)
+    if not len(pid) == len(lo_a) == len(cnt_a):
+        raise ValueError("check_join_rle: RLE columns differ in length")
+    return int(_load().oracle_check_rle(_ptr(r), len(r), _ptr(s), len(s),
+                                        _ptr(sbi), _ptr(pid), _ptr(lo_a),
+                                        _ptr(cnt_a), len(pid)))

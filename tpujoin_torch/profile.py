@@ -24,11 +24,11 @@ from collections import defaultdict
 
 import torch
 
-from tpujoin_torch.bench import DENSE_MATCHES, eprint, scaled_config
+from tpujoin_torch.bench import (DENSE_MATCHES, config_keys, eprint,
+                                 scaled_config)
 from tpujoin_torch.core.config import PRESETS, JoinConfig
-from tpujoin_torch.core.datagen import make_keys
 from tpujoin_torch.ops.hash_join import build
-from tpujoin_torch.ops.merge_join import probe_count, probe_materialize
+from tpujoin_torch.ops.merge_join import plan_materialize, probe_count
 from tpujoin_torch.utils.shapes import round_up
 
 
@@ -43,12 +43,16 @@ def union_length(intervals) -> float:
 
 
 def join_once(cfg: JoinConfig, bk: torch.Tensor, pk: torch.Tensor):
+    """One join's pair columns on the path plan_materialize picks, at the
+    capacities the bench gives ``cfg``."""
     ht = build(bk)
     state, total, nonzero = probe_count(ht, pk)
-    cap = round_up(int(total), cfg.result_pad_multiple)
-    k_cap = round_up(int(nonzero), max(cfg.result_pad_multiple // 8, 1024))
-    return probe_materialize(ht, state, k_cap, cap, total=total,
-                             nonzero=nonzero)
+    total, nonzero = int(total), int(nonzero)
+    cap = round_up(total, cfg.result_pad_multiple)
+    k_cap = round_up(nonzero, 1 << 20 if cfg.expected_matches > DENSE_MATCHES
+                     else max(cfg.result_pad_multiple // 8, 1024))
+    return plan_materialize(ht, state, k_cap, cap, total=total,
+                            nonzero=nonzero)[1]
 
 
 def _timed_join(cfg, bk, pk) -> float:
@@ -61,16 +65,8 @@ def _timed_join(cfg, bk, pk) -> float:
 def profile_join(cfg: JoinConfig) -> dict:
     """Profile one join of ``cfg`` on the current CUDA device; return the
     summary dict, kernels by device time."""
-    if cfg.expected_matches > DENSE_MATCHES:
-        raise NotImplementedError(
-            f"{cfg.name}: the high-selectivity materialize path is not ported")
     dev = torch.device("cuda", torch.cuda.current_device())
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.seed)
-    bk = make_keys(gen, cfg.build_rows, cfg.key_min, cfg.key_max,
-                   cfg.distribution, cfg.zipf_s)
-    pk = make_keys(gen, cfg.probe_rows, cfg.key_min, cfg.key_max,
-                   cfg.distribution, cfg.zipf_s)
+    bk, pk = config_keys(cfg, dev)
     _timed_join(cfg, bk, pk)   # warm-up: builds and loads the kernels
     untraced = _timed_join(cfg, bk, pk)
     torch.cuda.reset_peak_memory_stats(dev)
