@@ -22,9 +22,20 @@ Phases, one line each (details on stderr):
               through tpujoin_torch.bench, every pair checked (the native
               oracle; for the dense slice the RLE oracle and window
               checksums of every slot), and each path's kernels' launch
-              counters above 0 for that run, from 0 just before it.
+              counters above 0 for that run, from 0 just before it;
+  6. k6       K6a compact_ids and K6b compact_cols against their plain
+              versions on the filter's and the aggregate's own 100M-row
+              inputs, bitwise and timed, with torch.nonzero beside K6a;
+  7. ops      tpujoin_torch.bench's filter and aggregate at 100M rows,
+              verified (numpy; the native group count and a numpy
+              recompute of every group's sum, min and max), an 8192 x 8192
+              nested-loop join on the card from numpy keys against the
+              oracle and the CPU path, and filter_table, group_by_count and
+              group_by_agg on the card by default against the CPU path;
+              each run's kernels' launch counters above 0.
 Then one JSON line of per-kernel results (times, launches, the bound from
-this run's shapes), the wall time, and last the line
+this run's shapes, the library call's time where one computes the same
+function), the wall time, and last the line
 {"ok": true, "device": {...}}. Any failure exits non-zero before it; there
 is no CPU path.
 
@@ -42,15 +53,18 @@ import time
 import numpy as np
 import torch
 
+import tpujoin_torch
 from tpujoin_torch import bench, merge_join, oracle
 from tpujoin_torch.kernels import (_build, compact, expand, expand_fill,
                                    expand_groups, expand_runs, merge_count,
                                    merge_sort)
+from tpujoin_torch.ops import aggregate as agg
 from tpujoin_torch.ops import merge_join as mj
 from tpujoin_torch.ops.hash_join import build
 from tpujoin_torch.utils.shapes import round_up
 
 IMAX = 2**31 - 1
+OP_ROWS = 100_000_000        # the filter's and the aggregate's rows
 CHUNK = 1 << 26              # elements per step of the kernel/plain compare
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3, NVIDIA's data sheet
 # the data sheet's fp32 rate outside the tensor cores: it lists no i32
@@ -87,23 +101,29 @@ def max_abs_err(got, want) -> int:
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"shape/dtype {tuple(g.shape)} {g.dtype} "
                                  f"vs {tuple(w.shape)} {w.dtype}")
+        g, w = g.reshape(-1), w.reshape(-1)   # a count is 0-d
         for a in range(0, g.numel(), CHUNK):
             d = g[a:a + CHUNK].long() - w[a:a + CHUNK].long()
             err = max(err, int(d.abs().max()))
     return err
 
 
-def check_kernel(name: str, run, plain, results: dict) -> None:
+def check_kernel(name: str, run, plain, results: dict | None,
+                 phase: str = "kernels") -> dict:
     """Compare kernel and plain version on the same inputs (exact), time
-    both and record the numbers under ``name``."""
+    both and return the numbers, recorded under ``name`` unless
+    ``results`` is None."""
     err = max_abs_err(run(), plain())
     torch.cuda.synchronize()
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from plain, max |err| "
                              f"{err}")
-    ms, plain_ms = cuda_ms(run), cuda_ms(plain)
-    results[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    say("kernels", f"{name}: exact; {ms:.3f} ms (plain {plain_ms:.3f} ms)")
+    got = {"max_abs_err": err, "ms": cuda_ms(run), "plain_ms": cuda_ms(plain)}
+    if results is not None:
+        results[name].update(got)
+    say(phase, f"{name}: exact; {got['ms']:.3f} ms (plain "
+        f"{got['plain_ms']:.3f} ms)")
+    return got
 
 
 def bound(results: dict, name: str, nbytes: float, ops: float) -> None:
@@ -285,6 +305,54 @@ def dense_kernels_phase(dev, cfg, results: dict) -> None:
         f"expand_groups launch(es), equal to probe_materialize_fill")
 
 
+def k6_phase(dev, results: dict) -> None:
+    """K6a and K6b against their plain versions on the inputs the filter
+    and the aggregate give them at OP_ROWS rows: K6a on the filter's mask
+    (f32 values < 80) and on the aggregate's group-start mask over sorted
+    keys in [1, OP_ROWS / 10]; K6b on that mask and the value path's six
+    columns. torch.nonzero is K6a's library call."""
+    vals = bench.filter_values(OP_ROWS, dev)
+    mask = vals < bench.FILTER_THRESHOLD
+    del vals
+    cap = bench.filter_capacity(OP_ROWS)
+    check_kernel("compact_ids", lambda: compact.compact_ids(mask, cap),
+                 lambda: compact.compact_ids_plain(mask, cap), results, "k6")
+    results["compact_ids"]["library_ms"] = cuda_ms(
+        lambda: torch.nonzero(mask))
+    bound(results, "compact_ids", OP_ROWS + 4 * cap, OP_ROWS)
+    kept = int(mask.sum())
+    say("k6", f"compact_ids on the filter mask: {OP_ROWS} rows, {kept} "
+        f"kept, k_cap {cap}; torch.nonzero "
+        f"{results['compact_ids']['library_ms']:.3f} ms")
+    del mask
+
+    keys, values = bench.aggregate_inputs(OP_ROWS, OP_ROWS // 10, dev)
+    starts, cols, _, _ = agg.value_columns(keys, values)
+    del keys, values
+    ngroups = int(starts.sum())
+    gcap = round_up(ngroups, 1 << 20)
+    boundary = check_kernel(
+        "compact_ids[aggregate]", lambda: compact.compact_ids(starts, gcap),
+        lambda: compact.compact_ids_plain(starts, gcap), None, "k6")
+    say("k6", f"compact_ids on the group starts: {ngroups} groups, k_cap "
+        f"{gcap}; bound {(OP_ROWS + 4 * gcap) / HBM_BYTES_PER_S * 1e3:.3f} "
+        f"ms; torch.nonzero {cuda_ms(lambda: torch.nonzero(starts)):.3f} ms"
+        f" (kernel {boundary['ms']:.3f} ms)")
+
+    def flat(res):
+        return (*res[0], res[1])
+
+    check_kernel("compact_cols",
+                 lambda: flat(compact.compact_cols(starts, cols, gcap)),
+                 lambda: flat(compact.compact_cols_plain(starts, cols, gcap)),
+                 results, "k6")
+    ncols = len(cols)
+    bound(results, "compact_cols",
+          OP_ROWS + 4 * ncols * OP_ROWS + 4 * ncols * gcap, OP_ROWS)
+    say("k6", f"compact_cols: {ncols} columns, {OP_ROWS} rows, {ngroups} "
+        f"kept, k_cap {gcap}")
+
+
 COUNTERS = {"block_sort": (merge_sort, "LAUNCHES"),
             "merge_pass": (merge_sort, "MERGE_LAUNCHES"),
             "merge_count": (merge_count, "LAUNCHES"),
@@ -292,7 +360,9 @@ COUNTERS = {"block_sort": (merge_sort, "LAUNCHES"),
             "expand": (expand, "LAUNCHES"),
             "expand_fill": (expand_fill, "LAUNCHES"),
             "expand_groups": (expand_groups, "LAUNCHES"),
-            "expand_runs": (expand_runs, "LAUNCHES")}
+            "expand_runs": (expand_runs, "LAUNCHES"),
+            "compact_ids": (compact, "IDS_LAUNCHES"),
+            "compact_cols": (compact, "COLS_LAUNCHES")}
 
 
 def zero_counters() -> None:
@@ -360,6 +430,81 @@ def slice_phase(dev, cfg, results: dict, path: tuple, record: tuple):
     return out
 
 
+def _counted(fn, path: tuple, what: str):
+    """Run ``fn`` with the counters from 0 just before it; every kernel of
+    ``path`` must launch. Returns (fn's result, the counters)."""
+    zero_counters()
+    out = fn()
+    launches = read_counters()
+    for name in path:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name}: no launch during {what}")
+    return out, launches
+
+
+def ops_phase(dev, results: dict) -> None:
+    """The filter and the aggregate through tpujoin_torch.bench at OP_ROWS
+    rows, verified; the nested-loop join and the other new entry points
+    on the card by default (numpy input), against the oracle and the CPU
+    path."""
+    out, launches = _counted(
+        lambda: bench.bench_filter(OP_ROWS, verify=True, device=dev),
+        ("compact_ids",), "the filter")
+    print(json.dumps(out), flush=True)
+    if out["verified"] is not True:
+        raise AssertionError("filter: result fails its check")
+    results["compact_ids"]["launches"] = launches["compact_ids"]
+    say("ops", f"filter {OP_ROWS} rows: {out['total_seconds']:.6f} s, "
+        f"{out['rows_per_sec']:.0f} rows/s, verified; launches {launches}")
+
+    t0 = time.perf_counter()
+    out, launches = _counted(
+        lambda: bench.bench_aggregate(OP_ROWS, OP_ROWS // 10, verify=True,
+                                      device=dev),
+        ("compact_ids", "compact_cols"), "the aggregate")
+    print(json.dumps(out), flush=True)
+    if out["verified"] is not True:
+        raise AssertionError("aggregate: result fails its check")
+    results["compact_cols"]["launches"] = launches["compact_cols"]
+    say("ops", f"aggregate {OP_ROWS} rows, {out['groups']} groups: count + "
+        f"materialize {out['total_seconds']:.6f} s, values "
+        f"{out['agg_values_seconds']:.6f} s, verified; "
+        f"{time.perf_counter() - t0:.3f} s with the host check; "
+        f"launches {launches}")
+
+    rng = np.random.default_rng(3)
+    rk = rng.integers(1, 4097, 8192).astype(np.int32)
+    sk = rng.integers(1, 4097, 8192).astype(np.int32)
+    (r, s), launches = _counted(lambda: tpujoin_torch.nested_loop_join(rk, sk),
+                                ("compact_ids",), "the nested-loop join")
+    r_cpu, s_cpu = tpujoin_torch.nested_loop_join(rk, sk, device="cpu")
+    if (oracle.check_join(rk, sk, r, s, nested=True) != 1
+            or not (np.array_equal(r, r_cpu) and np.array_equal(s, s_cpu))):
+        raise AssertionError("nested-loop join on the card fails the oracle")
+    say("ops", f"nested-loop join 8192 x 8192, keys 1..4096: {len(r)} pairs,"
+        f" oracle PASS, equal to the CPU path; {launches['compact_ids']} "
+        f"compact_ids launch(es)")
+
+    keys = rng.integers(1, 5001, 1 << 16).astype(np.int32)
+    vals = rng.integers(-2**31, 2**31 - 1, 1 << 16).astype(np.int32)
+    table = {"key": keys, "val": vals}
+    for name, fn, path in (
+            ("filter_table", lambda **kw: tuple(tpujoin_torch.filter_table(
+                table, lambda v: v < 0, "val", return_numpy=True,
+                **kw).values()), ("compact_ids",)),
+            ("group_by_count", lambda **kw: tpujoin_torch.group_by_count(
+                keys, **kw), ("compact_ids",)),
+            ("group_by_agg", lambda **kw: tpujoin_torch.group_by_agg(
+                keys, vals, **kw), ("compact_cols",))):
+        got, _ = _counted(fn, path, name)
+        want = fn(device="cpu")
+        if not all(np.array_equal(g, w) for g, w in zip(got, want,
+                                                         strict=True)):
+            raise AssertionError(f"{name} on the card differs from the CPU")
+        say("ops", f"{name} 65536 rows on the card by default: equal to the "
+            f"CPU path")
+
+
 def check_dense_slice(out: dict) -> None:
     """The dense slice materialized every pair on fill and checked each."""
     if out.get("pair_kernel") != "fill":
@@ -410,6 +555,10 @@ def main(argv=None) -> int:
                           "replaces": "tpujoin/kernels/expand_groups.py:264"},
         "expand_runs": {"source": src + "expand_pairs.cu",
                         "replaces": "tpujoin/kernels/expand_runs.py:131"},
+        "compact_ids": {"source": src + "compact.cu",
+                        "replaces": "tpujoin/kernels/compact.py:342"},
+        "compact_cols": {"source": src + "compact.cu",
+                         "replaces": "tpujoin/kernels/compact.py:462"},
     }
     low = bench.scaled_config("ref_low_selectivity", args.scale)
     high = bench.scaled_config("ref_high_selectivity")
@@ -424,6 +573,8 @@ def main(argv=None) -> int:
         lambda: check_dense_slice(slice_phase(dev, high, results, path=(
             "block_sort", "merge_pass", "merge_count", "expand_fill"),
             record=("expand_fill",))),
+        lambda: k6_phase(dev, results),
+        lambda: ops_phase(dev, results),
     )
     for phase in phases:
         t0 = time.perf_counter()
@@ -436,7 +587,7 @@ def main(argv=None) -> int:
          "replaces": r["replaces"], "launches": r["launches"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": None}
+         "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         for name, r in results.items()]}), flush=True)
     say("wall", f"{time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,8 @@ import torch
 
 import tpujoin_torch
 from tpujoin_torch import oracle
+from tpujoin_torch.ops import aggregate as agg
+from tpujoin_torch.ops import filter as flt
 from tpujoin_torch.kernels import (compact, expand, expand_fill,
                                    expand_groups, expand_runs, merge_count,
                                    merge_sort)
@@ -194,3 +196,119 @@ def test_wrappers_count_launches_and_refuse_bad_input():
         merge_count.merge_count(x, x.cpu())
     with pytest.raises(ValueError):
         merge_sort.block_sort(x[::2], x[::2])
+
+
+def _mask(n: int, sel: float, dtype: str) -> torch.Tensor:
+    rng = np.random.default_rng(n + int(sel * 100))
+    keep = rng.random(n) < sel
+    if dtype == "bool":
+        return torch.from_numpy(keep).cuda()
+    # an i32 mask: kept rows > 0, the others 0 or negative
+    vals = np.where(keep, rng.integers(1, 9, n), rng.integers(-5, 1, n))
+    return torch.from_numpy(vals.astype(np.int32)).cuda()
+
+
+@pytest.mark.parametrize("n,sel", [(0, 0.5), (1, 1.0), (1023, 0.5),
+                                   (1025, 0.0), (100_003, 0.5),
+                                   (1_000_001, 0.1), (3_000_017, 0.9)])
+@pytest.mark.parametrize("dtype", ["bool", "int32"])
+@pytest.mark.parametrize("k_cap_of", ["short", "exact", "long"])
+def test_compact_ids_kernel(n, sel, dtype, k_cap_of):
+    mask = _mask(n, sel, dtype)
+    k = int(compact._keep(mask).sum())
+    k_cap = {"short": k // 2, "exact": k, "long": k + 1000}[k_cap_of]
+    before = compact.IDS_LAUNCHES
+    _equal(compact.compact_ids(mask, k_cap),
+           compact.compact_ids_plain(mask, k_cap))
+    assert compact.IDS_LAUNCHES == before + (n > 0)
+
+
+@pytest.mark.parametrize("ncols", [1, 3, 6, 8])
+@pytest.mark.parametrize("n,sel", [(1025, 0.3), (1_000_003, 0.1),
+                                   (2_000_001, 0.6)])
+@pytest.mark.parametrize("dtype", ["bool", "int32"])
+def test_compact_cols_kernel(ncols, n, sel, dtype):
+    mask = _mask(n, sel, dtype)
+    rng = np.random.default_rng(ncols)
+    cols = [torch.from_numpy(rng.integers(IMIN, IMAX, n, endpoint=True)
+                             .astype(np.int32)).cuda() for _ in range(ncols)]
+    k = int(compact._keep(mask).sum())
+    before = compact.COLS_LAUNCHES
+    for k_cap in (k // 3, k + 777):
+        got, nz = compact.compact_cols(mask, cols, k_cap)
+        want, wnz = compact.compact_cols_plain(mask, cols, k_cap)
+        _equal((*got, nz), (*want, wnz))
+    assert compact.COLS_LAUNCHES == before + 2
+
+
+def test_compact_wrappers_refuse_bad_input():
+    mask = torch.ones(64, dtype=torch.bool, device="cuda")
+    col = torch.arange(64, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        compact.compact_ids(mask.to(torch.uint8), 8)       # mask type
+    with pytest.raises(ValueError):
+        compact.compact_ids(mask[::2], 8)                  # strided
+    with pytest.raises(ValueError):
+        compact.compact_cols(mask, [col] * 9, 8)           # > 8 columns
+    with pytest.raises(ValueError):
+        compact.compact_cols(mask, [col[:63]], 8)          # ragged
+    with pytest.raises(ValueError):
+        compact.compact_cols(mask, [col.long()], 8)        # column type
+    with pytest.raises(ValueError):
+        compact.compact_cols(mask.cpu(), [col], 8)         # two devices
+
+
+def test_filter_on_card_matches_cpu():
+    vals = np.random.default_rng(4).uniform(0, 160, 300_001).astype(
+        np.float32)
+    before = compact.IDS_LAUNCHES
+    ids, total = flt.filter_device(vals, 80.0, 1 << 18)    # default: card
+    assert ids.is_cuda and compact.IDS_LAUNCHES == before + 1
+    cids, ctotal = flt.filter_device(vals, 80.0, 1 << 18, device="cpu")
+    assert int(total) == int(ctotal)
+    assert torch.equal(ids.cpu(), cids)
+    table = {"val": vals, "rowid": np.arange(len(vals), dtype=np.int32)}
+    got = tpujoin_torch.filter_table(table, lambda v: v >= 80.0, "val",
+                                     return_numpy=True)
+    want = tpujoin_torch.filter_table(table, lambda v: v >= 80.0, "val",
+                                      device="cpu", return_numpy=True)
+    for name in table:
+        np.testing.assert_array_equal(got[name], want[name])
+
+
+@pytest.mark.parametrize("n,dom", [(1 << 20, 100_000), (300_007, 7),
+                                   (4096, 10**9)])
+def test_aggregate_on_card_matches_cpu(n, dom):
+    rng = np.random.default_rng(n)
+    keys = rng.integers(-dom, dom, n).astype(np.int32)
+    vals = rng.integers(IMIN, IMAX, n, endpoint=True).astype(np.int32)
+    before = (compact.IDS_LAUNCHES, compact.COLS_LAUNCHES)
+    got = tpujoin_torch.group_by_agg(keys, vals)
+    assert compact.COLS_LAUNCHES == before[1] + 1
+    want = tpujoin_torch.group_by_agg(keys, vals, device="cpu")
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, w)
+    gk, gc = tpujoin_torch.group_by_count(keys)
+    assert compact.IDS_LAUNCHES == before[0] + 1
+    ok, oc = oracle.group_by_count(keys)
+    np.testing.assert_array_equal(gk, ok)
+    np.testing.assert_array_equal(gc, oc)
+    cap = 1 << 21
+    tk, tv = torch.from_numpy(keys).cuda(), torch.from_numpy(vals).cuda()
+    for g, w in zip(agg.group_agg_materialize(tk, tv, cap),
+                    agg.group_agg_materialize(tk.cpu(), tv.cpu(), cap),
+                    strict=True):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_nested_loop_join_on_card():
+    rng = np.random.default_rng(5)
+    rk = rng.integers(1, 600, 3000).astype(np.int32)
+    sk = rng.integers(1, 600, 2000).astype(np.int32)
+    before = compact.IDS_LAUNCHES
+    r, s = tpujoin_torch.nested_loop_join(rk, sk)          # default: card
+    assert compact.IDS_LAUNCHES == before + 1
+    assert oracle.check_join(rk, sk, r, s, nested=True) == 1
+    cr, cs = tpujoin_torch.nested_loop_join(rk, sk, device="cpu")
+    np.testing.assert_array_equal(r, cr)
+    np.testing.assert_array_equal(s, cs)

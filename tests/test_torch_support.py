@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import tpujoin
+import tpujoin_torch
 from tpujoin import oracle as jax_oracle
 from tpujoin.utils import shapes as jax_shapes
 from tpujoin_torch import bench, oracle, profile
@@ -127,7 +128,10 @@ def test_port_imports_without_jax():
             "from tpujoin_torch.kernels import _build, compact, expand, "
             "expand_fill, expand_groups, expand_runs, merge_count, "
             "merge_sort\n"
-            "from tpujoin_torch.utils import verify\n"
+            "from tpujoin_torch.ops import aggregate, filter, "
+            "nested_loop_join, radix, sort\n"
+            "from tpujoin_torch.core import table\n"
+            "from tpujoin_torch.utils import device, verify\n"
             "assert 'tpujoin' not in sys.modules\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
@@ -153,6 +157,52 @@ def test_gpu_entry_points_refuse_without_cuda(tmp_path):
     assert alone.returncode != 0 and '"ok"' not in alone.stdout
     assert bench.main(["--scale", "0.001"]) == 1
     assert profile.main(["--scale", "0.001"]) == 1
+    for op in ("filter", "aggregate", "sort"):
+        assert bench.main(["--op", op, "--rows", "1000"]) == 1
+    for op in ("filter", "aggregate"):
+        assert profile.main(["--op", op, "--rows", "1000"]) == 1
+
+
+_KEYS = np.arange(1, 65, dtype=np.int32)
+ENTRY_POINTS = {
+    "filter_table": lambda **kw: tpujoin_torch.filter_table(
+        {"v": _KEYS}, lambda v: v < 10, "v", **kw),
+    "filter_device": lambda **kw: tpujoin_torch.ops.filter.filter_device(
+        _KEYS, 10, 64, **kw),
+    "group_by_count": lambda **kw: tpujoin_torch.group_by_count(_KEYS, **kw),
+    "group_by_agg": lambda **kw: tpujoin_torch.group_by_agg(_KEYS, _KEYS,
+                                                            **kw),
+    "nested_loop_join": lambda **kw: tpujoin_torch.nested_loop_join(
+        _KEYS, _KEYS, **kw),
+    "merge_join": lambda **kw: tpujoin_torch.merge_join(_KEYS, _KEYS, **kw),
+}
+
+
+@pytest.mark.skipif("torch.cuda.is_available()",
+                    reason="checks the refusal without a CUDA device")
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(name):
+    """With numpy input and no device, an entry point runs on CUDA, so
+    without a card it raises; it never falls back to the CPU silently.
+    With device="cpu" it runs."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[name]()
+    ENTRY_POINTS[name](device="cpu")
+
+
+@pytest.mark.parametrize("op", ["filter", "aggregate", "sort"])
+def test_bench_ops_run_small_on_cpu(op):
+    out = bench.run_op(op, 50_000, verify=True, device="cpu")
+    keys = {"op", "rows", "device", "total_seconds", "rows_per_sec"}
+    if op != "sort":
+        keys |= {"compaction", "verified"}
+        assert out["verified"] is True and out["compaction"] == "plain"
+    if op == "aggregate":
+        keys |= {"groups", "agg_values_seconds", "agg_values_rows_per_sec"}
+        assert 4000 < out["groups"] <= 5000
+    assert set(out) == keys
+    assert out["op"] == op and out["rows"] == 50_000
+    assert out["device"] == "cpu"
 
 
 @pytest.mark.parametrize("intervals,busy", [

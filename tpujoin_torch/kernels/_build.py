@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``tpujoin_torch/csrc``.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a
-plain C interface, ``tpujoin_torch/build/libtpujoin_kernels.so``, at first
-use and again whenever a source or the flags change (the build records the
+Every ``csrc/*.cu`` is compiled by its own ``nvcc``, all started together,
+and the objects are linked into one shared library with a plain C
+interface, ``tpujoin_torch/build/libtpujoin_kernels.so``, at first use and
+again whenever a source or the flags change (the build records the
 sources' hash beside the library). The library is loaded with ctypes: no
 PyTorch headers are compiled, which keeps a build to seconds.
 
@@ -25,7 +26,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 LIB_NAME = "libtpujoin_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 P, I64 = ctypes.c_void_p, ctypes.c_int64
 # argtypes of every entry point; the trailing pointer is the CUDA stream
@@ -33,8 +34,9 @@ _SIGNATURES = {
     "tj_block_sort": (P, P, P, P, I64, P),
     "tj_merge_pass": (P, P, P, P, I64, I64, P),
     "tj_merge_count": (P, I64, P, I64, P, P, P),
-    "tj_compact_count": (P, I64, P, P),
-    "tj_compact_scatter": (P, P, P, I64, P, P, P, P, P, I64, P),
+    "tj_compact_count": (P, I64, I64, P, P),
+    "tj_compact_ids": (P, I64, I64, P, P, P, I64, P),
+    "tj_compact_cols": (P, I64, I64, P, P, I64, P, P, I64, P),
     "tj_expand": (P, P, P, I64, P, P, I64, P),
     "tj_expand_fill": (P, P, I64, P, P, P, I64, P, I64, I64, P, P, I64, P),
     "tj_expand_runs": (P, P, P, I64, P, I64, I64, P, P, I64, P),
@@ -80,15 +82,32 @@ def build() -> Path:
     if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)
+    nvcc, tag = find_nvcc(), os.getpid()
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}.tmp"
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(srcs, objs)]
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        results = [(cmd, proc, *proc.communicate())
+                   for cmd, proc in zip(cmds, procs)]
+        for cmd, proc, out, err in results:
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{out}\n{err}")
+        link = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+    finally:
+        for path in (tmp, *objs):
+            path.unlink(missing_ok=True)
     stamp.write_text(digest)
     return lib_path
 

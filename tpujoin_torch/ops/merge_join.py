@@ -29,6 +29,7 @@ from tpujoin_torch.kernels.expand_runs import expand_runs
 from tpujoin_torch.kernels.merge_count import merge_count
 from tpujoin_torch.kernels.merge_sort import sort_pairs
 from tpujoin_torch.ops.hash_join import HashJoinTable, _i32_tensor, build
+from tpujoin_torch.utils.device import resolve_device
 from tpujoin_torch.utils.shapes import round_up
 
 # pads the last probe chunk: sorts to the tail and matches nothing in the
@@ -214,19 +215,6 @@ def probe_rle(state: SortedProbe, k_cap: int, all_matched: bool = False):
     return sid_c, lo_c, cnt_c
 
 
-def _join_device(build_keys, probe_keys, device) -> torch.device:
-    """``device``, else the device of a tensor among the keys, else CUDA,
-    which must then be present: numpy keys never fall back to the CPU."""
-    if device is None:
-        device = next((k.device for k in (build_keys, probe_keys)
-                       if isinstance(k, torch.Tensor)), "cuda")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("tpujoin_torch: no CUDA device; pass "
-                           "device='cpu' to run the plain versions")
-    return device
-
-
 def merge_join_rle(build_keys, probe_keys, *,
                    device: torch.device | str | None = None,
                    row_pad_multiple: int = 1 << 16):
@@ -235,7 +223,7 @@ def merge_join_rle(build_keys, probe_keys, *,
     expands to the pairs (sorted_build_ids[lo[r] + j], probe_ids[r]) for
     j < cnt[r]. Keys are numpy arrays or tensors; ``device`` defaults to
     the tensors' device, else CUDA."""
-    dev = _join_device(build_keys, probe_keys, device)
+    dev = resolve_device(build_keys, probe_keys, device=device)
     bk = torch.as_tensor(build_keys, dtype=torch.int32, device=dev)
     pk = torch.as_tensor(probe_keys, dtype=torch.int32, device=dev)
     ht = build(bk)
@@ -294,7 +282,7 @@ def merge_join(build_keys, probe_keys, *,
     is no silent CPU fallback: pass ``device="cpu"`` for the plain
     versions). The probe side runs in chunks of ``probe_chunk_rows`` (all
     at once when None), the last chunk padded with CHUNK_PAD_KEY."""
-    dev = _join_device(build_keys, probe_keys, device)
+    dev = resolve_device(build_keys, probe_keys, device=device)
     bk = torch.as_tensor(build_keys, dtype=torch.int32, device=dev)
     pk = torch.as_tensor(probe_keys, dtype=torch.int32, device=dev)
     m = pk.shape[0]

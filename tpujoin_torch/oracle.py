@@ -36,6 +36,9 @@ def _load() -> ctypes.CDLL:
         lib.oracle_check.argtypes = [i32p, ctypes.c_int64, i32p,
                                      ctypes.c_int64, i32p, i32p,
                                      ctypes.c_int64, ctypes.c_int]
+        lib.oracle_group_count.restype = ctypes.c_int64
+        lib.oracle_group_count.argtypes = [i32p, ctypes.c_int64, i32p, i32p,
+                                           ctypes.c_int64]
         lib.oracle_check_rle.restype = ctypes.c_int
         lib.oracle_check_rle.argtypes = [i32p, ctypes.c_int64, i32p,
                                          ctypes.c_int64, i32p, i32p, i32p,
@@ -85,3 +88,14 @@ def check_join_rle(r_keys, s_keys, sorted_build_ids, probe_ids, lo,
     return int(_load().oracle_check_rle(_ptr(r), len(r), _ptr(s), len(s),
                                         _ptr(sbi), _ptr(pid), _ptr(lo_a),
                                         _ptr(cnt_a), len(pid)))
+
+
+def group_by_count(keys):
+    """(unique_keys, counts) as int32 numpy arrays, keys ascending: the
+    aggregate oracle."""
+    k = _i32(keys)
+    ko = np.empty(len(k), np.int32)
+    co = np.empty(len(k), np.int32)
+    n = int(_load().oracle_group_count(_ptr(k), len(k), _ptr(ko), _ptr(co),
+                                       len(k)))
+    return ko[:n], co[:n]

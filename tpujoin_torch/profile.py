@@ -1,16 +1,22 @@
-"""Device time of one join, by kernel, and the device's busy share.
+"""Device time of one operation, by kernel, and the device's busy share.
 
-Runs the v2 join of a config (build, count, the count's totals to the host,
-materialize, as ``merge_join`` runs one chunk) once to warm up, once under
-the host clock alone and once under ``torch.profiler``. Device time comes
-from the trace's device rows only (kernels, copies, fills): the CPU
-operators' device totals count each of their kernels a second time. The
-busy share is the union of the device rows' intervals over the host wall
-time of the traced join, which ends in a synchronize.
+The operation (``--op``) is one v2 join of a config (build, count, the
+count's totals to the host, materialize, as ``merge_join`` runs one chunk),
+one ``filter_device`` over the bench's filter column, or one
+``group_agg_materialize`` over the bench's aggregate keys and values (sort,
+cumsum, the 6-column compact_cols), at the bench's sizes and capacities.
+It runs once to warm up, once under the host clock alone and once under
+``torch.profiler``. Device time comes from the trace's device rows only
+(kernels, copies, fills): the CPU operators' device totals count each of
+their kernels a second time. The busy share is the union of the device
+rows' intervals over the host wall time of the traced run, which ends in a
+synchronize.
 
 stdout is one JSON line; the kernel table goes to stderr.
 
-Usage: python -m tpujoin_torch.profile [--config NAME] [--scale F]
+Usage: python -m tpujoin_torch.profile [--op join] [--config NAME]
+                                       [--scale F]
+       python -m tpujoin_torch.profile --op {filter,aggregate} [--rows N]
 
 It needs a CUDA device.
 """
@@ -24,9 +30,13 @@ from collections import defaultdict
 
 import torch
 
-from tpujoin_torch.bench import (DENSE_MATCHES, config_keys, eprint,
+from tpujoin_torch.bench import (DENSE_MATCHES, FILTER_THRESHOLD, OP_ROWS,
+                                 aggregate_inputs, config_keys, eprint,
+                                 filter_capacity, filter_values,
                                  scaled_config)
 from tpujoin_torch.core.config import PRESETS, JoinConfig
+from tpujoin_torch.ops import aggregate as agg
+from tpujoin_torch.ops.filter import filter_device
 from tpujoin_torch.ops.hash_join import build
 from tpujoin_torch.ops.merge_join import plan_materialize, probe_count
 from tpujoin_torch.utils.shapes import round_up
@@ -55,25 +65,24 @@ def join_once(cfg: JoinConfig, bk: torch.Tensor, pk: torch.Tensor):
                             nonzero=nonzero)[1]
 
 
-def _timed_join(cfg, bk, pk) -> float:
+def _timed(fn) -> float:
     t0 = time.perf_counter()
-    join_once(cfg, bk, pk)
+    fn()
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
 
-def profile_join(cfg: JoinConfig) -> dict:
-    """Profile one join of ``cfg`` on the current CUDA device; return the
-    summary dict, kernels by device time."""
-    dev = torch.device("cuda", torch.cuda.current_device())
-    bk, pk = config_keys(cfg, dev)
-    _timed_join(cfg, bk, pk)   # warm-up: builds and loads the kernels
-    untraced = _timed_join(cfg, bk, pk)
+def profile_fn(fn, dev: torch.device) -> dict:
+    """Run ``fn`` to warm up (which builds and loads the kernels), then
+    untraced and traced; return the timings, the busy share, the peak
+    allocation and the kernels by device time."""
+    _timed(fn)
+    untraced = _timed(fn)
     torch.cuda.reset_peak_memory_stats(dev)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        window = _timed_join(cfg, bk, pk)
+        window = _timed(fn)
     peak = torch.cuda.max_memory_allocated(dev)
 
     rows = [e for e in prof.events()
@@ -90,10 +99,7 @@ def profile_join(cfg: JoinConfig) -> dict:
                       for name, (c, us) in by_name.items()),
                      key=lambda k: -k["ms"])
     return {
-        "config": cfg.name,
         "device": torch.cuda.get_device_name(dev),
-        "build_rows": cfg.build_rows,
-        "probe_rows": cfg.probe_rows,
         "untraced_ms": untraced * 1e3,
         "traced_ms": window * 1e3,
         "device_busy_ms": busy_us / 1e3,
@@ -104,17 +110,59 @@ def profile_join(cfg: JoinConfig) -> dict:
     }
 
 
+def _device() -> torch.device:
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def profile_join(cfg: JoinConfig) -> dict:
+    """Profile one join of ``cfg`` on the current CUDA device."""
+    dev = _device()
+    bk, pk = config_keys(cfg, dev)
+    out = profile_fn(lambda: join_once(cfg, bk, pk), dev)
+    return {"op": "join", "config": cfg.name, "build_rows": cfg.build_rows,
+            "probe_rows": cfg.probe_rows, **out}
+
+
+def profile_filter(rows: int) -> dict:
+    """Profile one filter_device over the bench's filter column."""
+    dev = _device()
+    vals = filter_values(rows, dev)
+    cap = filter_capacity(rows)
+    out = profile_fn(lambda: filter_device(vals, FILTER_THRESHOLD, cap), dev)
+    return {"op": "filter", "rows": rows, **out}
+
+
+def profile_aggregate(rows: int) -> dict:
+    """Profile one group_agg_materialize over the bench's aggregate keys
+    and values, at the bench's capacity."""
+    dev = _device()
+    keys, vals = aggregate_inputs(rows, max(rows // 10, 100), dev)
+    ngroups = int(agg.group_count(keys))
+    cap = round_up(ngroups, 1 << 20)
+    out = profile_fn(lambda: agg.group_agg_materialize(keys, vals, cap), dev)
+    return {"op": "aggregate", "rows": rows, "groups": ngroups, **out}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--op", default="join",
+                    choices=["join", "filter", "aggregate"])
     ap.add_argument("--config", default="ref_low_selectivity",
                     choices=sorted(PRESETS))
     ap.add_argument("--scale", type=float, default=1.0,
-                    help="row-count scale factor")
+                    help="row-count scale factor of the join config")
+    ap.add_argument("--rows", type=int, default=OP_ROWS,
+                    help="row count of --op filter/aggregate")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         eprint("tpujoin_torch.profile: no CUDA device")
         return 1
-    out = profile_join(scaled_config(args.config, args.scale))
+    if args.op == "join":
+        out = profile_join(scaled_config(args.config, args.scale))
+    elif args.op == "filter":
+        out = profile_filter(args.rows)
+    else:
+        out = profile_aggregate(args.rows)
     for k in out["kernels"]:
         eprint(f"{k['ms']:10.3f} ms {k['calls']:5d}  {k['name'][:100]}")
     print(json.dumps(out), flush=True)
