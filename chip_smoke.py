@@ -6,7 +6,9 @@ Phases, one line each (details on stderr):
   2. build    nvcc builds every kernel of tpujoin_torch/csrc;
   3. kernels  each kernel against its plain PyTorch version on the card, on
               the inputs the main paths give it, bitwise, and the time of
-              both (CUDA events, the minimum of 5 runs after a warm-up):
+              both (CUDA events, the minimum of 5 runs after a warm-up,
+              each queued behind a device-side hold so that the events
+              time the device and not the host's launches):
               K1-K4 on ref_low_selectivity's keys (sorted, counted,
               compacted), then K1 on a ragged width with the i32 extremes
               and a small join checked against the native oracle; K5 and
@@ -32,7 +34,16 @@ Phases, one line each (details on stderr):
               nested-loop join on the card from numpy keys against the
               oracle and the CPU path, and filter_table, group_by_count and
               group_by_agg on the card by default against the CPU path;
-              each run's kernels' launch counters above 0.
+              each run's kernels' launch counters above 0;
+  8. probes   the probe kernels against their plain versions on the probe
+              programs' own inputs, bitwise and timed: stream_scale on
+              bench/primitives.py's 99,614,720 rows and on the i32
+              extremes, smem_gather 65,536 from 16,384, carry_scan on 2^30
+              ones and on 2^30 full-range values,
+              shift_loop on 2^28 rows at rolls 1, 4, 10 and 20; then both
+              probe programs (tpujoin_torch.probes.primitives and
+              .bench_mat2) at full size, each kernel's launch counter above
+              0 for that run.
 Then one JSON line of per-kernel results (times, launches, the bound from
 this run's shapes, the library call's time where one computes the same
 function), the wall time, and last the line
@@ -55,18 +66,24 @@ import torch
 
 import tpujoin_torch
 from tpujoin_torch import bench, merge_join, oracle
-from tpujoin_torch.kernels import (_build, compact, expand, expand_fill,
-                                   expand_groups, expand_runs, merge_count,
-                                   merge_sort)
+from tpujoin_torch.core import datagen
+from tpujoin_torch.kernels import (_build, carry_scan, compact, expand,
+                                   expand_fill, expand_groups, expand_runs,
+                                   merge_count, merge_sort, shift_loop,
+                                   smem_gather, stream)
 from tpujoin_torch.ops import aggregate as agg
 from tpujoin_torch.ops import merge_join as mj
 from tpujoin_torch.ops.hash_join import build
+from tpujoin_torch.probes import bench_mat2, primitives
+from tpujoin_torch.utils.hw import hbm_peak_gbps
 from tpujoin_torch.utils.shapes import round_up
 
 IMAX = 2**31 - 1
 OP_ROWS = 100_000_000        # the filter's and the aggregate's rows
+PRIMITIVE_ROWS = 100_000_000  # bench/primitives.py's N
 CHUNK = 1 << 26              # elements per step of the kernel/plain compare
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3, NVIDIA's data sheet
+HOLD_MS = 10.0               # the device-side wait before each timed run
+HOLD_DOUBLINGS = 4           # longer holds tried before a run is flagged
 # the data sheet's fp32 rate outside the tensor cores: it lists no i32
 # rate, and these kernels' compares and adds are i32
 OPS_PER_S = 67e12
@@ -76,19 +93,41 @@ def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Minimum over ``reps`` CUDA-event-timed runs of ``fn``, in ms."""
+def cuda_ms(fn, label: str, reps: int = 5) -> float:
+    """Minimum over ``reps`` CUDA-event-timed runs of ``fn``, in ms.
+
+    Each run is queued behind a device-side spin (``torch.cuda._sleep``, a
+    private PyTorch call) of HOLD_MS at the card's reported SM clock, so the
+    host has enqueued the run before the start event fires and the events
+    time the device's work, not the launches' host overhead. If the start
+    event has already fired when ``fn`` returns, the hold did not cover the
+    enqueue: the run is dropped and tried again behind a hold twice as long.
+    A run that still is not covered after HOLD_DOUBLINGS doublings waits on
+    the device inside ``fn`` (a host sync, as ``torch.nonzero`` has); it is
+    timed as it is and flagged, since its events include host work."""
     fn()
     torch.cuda.synchronize()
-    best = math.inf
-    for _ in range(reps):
+    khz = torch.cuda.get_device_properties(0).clock_rate
+    cycles = max(1, int(khz * HOLD_MS))
+    best, doublings, done = math.inf, 0, 0
+    while done < reps:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         start.record()
         fn()
+        covered = not start.query()
         end.record()
         end.synchronize()
+        if not covered and doublings < HOLD_DOUBLINGS:
+            cycles, doublings = 2 * cycles, doublings + 1
+            continue
+        if not covered and done == 0:
+            say("timing", f"{label}: waits on the device inside the timed "
+                f"run even behind a {cycles / khz:.0f} ms hold; its time "
+                f"includes host work")
         best = min(best, start.elapsed_time(end))
+        done += 1
     return best
 
 
@@ -118,7 +157,8 @@ def check_kernel(name: str, run, plain, results: dict | None,
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from plain, max |err| "
                              f"{err}")
-    got = {"max_abs_err": err, "ms": cuda_ms(run), "plain_ms": cuda_ms(plain)}
+    got = {"max_abs_err": err, "ms": cuda_ms(run, name),
+           "plain_ms": cuda_ms(plain, f"{name} plain")}
     if results is not None:
         results[name].update(got)
     say(phase, f"{name}: exact; {got['ms']:.3f} ms (plain "
@@ -126,11 +166,21 @@ def check_kernel(name: str, run, plain, results: dict | None,
     return got
 
 
+def hbm_bytes_per_s() -> float:
+    """The card's HBM peak from its name (tpujoin_torch/utils/hw.py), in
+    bytes/s; raises for a card it does not know."""
+    gbps = hbm_peak_gbps(torch.device("cuda", 0))
+    if not gbps:
+        raise RuntimeError(f"no HBM peak known for "
+                           f"{torch.cuda.get_device_name(0)}")
+    return gbps * 1e9
+
+
 def bound(results: dict, name: str, nbytes: float, ops: float) -> None:
     """Record the least time the card could take for ``name``'s work: the
     larger of its bytes (each input read once, each output written once)
     over the HBM rate and its operations over the op rate."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_bytes = nbytes / hbm_bytes_per_s() * 1e3
     by_ops = ops / OPS_PER_S * 1e3
     results[name].update(
         bound_ms=max(by_bytes, by_ops),
@@ -165,12 +215,14 @@ def kernels_phase(dev, cfg, results: dict) -> None:
                       merge_sort.sort_pairs_plain(bk, ids))
     if err:
         raise AssertionError(f"sort_pairs differs from torch.sort: {err}")
-    say("kernels", f"sort_pairs n={n}: exact; "
-        f"{cuda_ms(lambda: merge_sort.sort_pairs(bk, ids)):.3f} ms "
-        f"(torch.sort + gather "
-        f"{cuda_ms(lambda: merge_sort.sort_pairs_plain(bk, ids)):.3f} ms; "
+    pairs_ms = cuda_ms(lambda: merge_sort.sort_pairs(bk, ids), "sort_pairs")
+    plain_ms = cuda_ms(lambda: merge_sort.sort_pairs_plain(bk, ids),
+                       "sort_pairs plain")
+    torch_ms = cuda_ms(lambda: torch.sort(bk, stable=True), "torch.sort")
+    say("kernels", f"sort_pairs n={n}: exact; {pairs_ms:.3f} ms "
+        f"(torch.sort + gather {plain_ms:.3f} ms; "
         f"one torch.sort(stable=True), whose indices are the ids here, "
-        f"{cuda_ms(lambda: torch.sort(bk, stable=True)):.3f} ms); "
+        f"{torch_ms:.3f} ms); "
         f"last merge pass run {run}")
     bsk, _ = merge_sort.sort_pairs(bk, ids)
     m = pk.shape[0]
@@ -318,7 +370,7 @@ def k6_phase(dev, results: dict) -> None:
     check_kernel("compact_ids", lambda: compact.compact_ids(mask, cap),
                  lambda: compact.compact_ids_plain(mask, cap), results, "k6")
     results["compact_ids"]["library_ms"] = cuda_ms(
-        lambda: torch.nonzero(mask))
+        lambda: torch.nonzero(mask), "torch.nonzero")
     bound(results, "compact_ids", OP_ROWS + 4 * cap, OP_ROWS)
     kept = int(mask.sum())
     say("k6", f"compact_ids on the filter mask: {OP_ROWS} rows, {kept} "
@@ -335,8 +387,9 @@ def k6_phase(dev, results: dict) -> None:
         "compact_ids[aggregate]", lambda: compact.compact_ids(starts, gcap),
         lambda: compact.compact_ids_plain(starts, gcap), None, "k6")
     say("k6", f"compact_ids on the group starts: {ngroups} groups, k_cap "
-        f"{gcap}; bound {(OP_ROWS + 4 * gcap) / HBM_BYTES_PER_S * 1e3:.3f} "
-        f"ms; torch.nonzero {cuda_ms(lambda: torch.nonzero(starts)):.3f} ms"
+        f"{gcap}; bound {(OP_ROWS + 4 * gcap) / hbm_bytes_per_s() * 1e3:.3f} "
+        f"ms; torch.nonzero "
+        f"{cuda_ms(lambda: torch.nonzero(starts), 'torch.nonzero'):.3f} ms"
         f" (kernel {boundary['ms']:.3f} ms)")
 
     def flat(res):
@@ -362,7 +415,11 @@ COUNTERS = {"block_sort": (merge_sort, "LAUNCHES"),
             "expand_groups": (expand_groups, "LAUNCHES"),
             "expand_runs": (expand_runs, "LAUNCHES"),
             "compact_ids": (compact, "IDS_LAUNCHES"),
-            "compact_cols": (compact, "COLS_LAUNCHES")}
+            "compact_cols": (compact, "COLS_LAUNCHES"),
+            "stream_scale": (stream, "LAUNCHES"),
+            "smem_gather": (smem_gather, "LAUNCHES"),
+            "carry_scan": (carry_scan, "LAUNCHES"),
+            "shift_loop": (shift_loop, "LAUNCHES")}
 
 
 def zero_counters() -> None:
@@ -505,6 +562,105 @@ def ops_phase(dev, results: dict) -> None:
             f"CPU path")
 
 
+def full_range(n: int, seed: int, dev) -> torch.Tensor:
+    """n i32 values over the whole range, seeded on the card, with both
+    extremes present."""
+    x = torch.randint(-IMAX - 1, IMAX, (n,),
+                      generator=datagen.generator(seed, dev), device=dev,
+                      dtype=torch.int32)
+    x[::1001] = IMAX
+    x[7::1003] = -IMAX - 1
+    return x
+
+
+def probes_phase(dev, results: dict) -> None:
+    """The four probe kernels against their plain versions on the probe
+    programs' own inputs (exact), timed, with the library call beside the
+    three that have one; then both probe programs at full size, each
+    kernel launched in its run."""
+    data = primitives.inputs(PRIMITIVE_ROWS, dev)[0]
+    x = data[:primitives.stream_rows(PRIMITIVE_ROWS)]
+    del data
+    n = x.shape[0]
+    check_kernel("stream_scale", lambda: (stream.stream_scale(x),),
+                 lambda: (stream.stream_scale_plain(x),), results, "probes")
+    results["stream_scale"]["library_ms"] = cuda_ms(lambda: x * 2, "x * 2")
+    bound(results, "stream_scale", 8 * n, n)
+    ext = full_range((1 << 24) + 3, 5, dev)
+    if max_abs_err((stream.stream_scale(ext),),
+                   (stream.stream_scale_plain(ext),)):
+        raise AssertionError("stream_scale differs on the i32 extremes")
+    rate = 8 * n / (results["stream_scale"]["ms"] / 1e3)
+    say("probes", f"stream_scale: {n} rows, {8 * n / 1e9:.6f} GB, "
+        f"{rate / 1e9:.1f} GB/s ({rate / hbm_bytes_per_s():.4f} of the HBM "
+        f"peak); exact on {ext.shape[0]} rows with the extremes")
+    del x, ext
+
+    tbl, vidx = primitives.gather_inputs(dev)
+    check_kernel("smem_gather", lambda: (smem_gather.smem_gather(tbl, vidx),),
+                 lambda: (smem_gather.smem_gather_plain(tbl, vidx),),
+                 results, "probes")
+    results["smem_gather"]["library_ms"] = cuda_ms(
+        lambda: torch.index_select(tbl, 0, vidx), "torch.index_select")
+    bound(results, "smem_gather", 4 * tbl.shape[0] + 8 * vidx.shape[0],
+          vidx.shape[0])
+    del tbl, vidx
+
+    n = bench_mat2.N
+    ones = torch.ones(n, dtype=torch.int32, device=dev)
+    check_kernel("carry_scan", lambda: (carry_scan.carry_scan(ones),),
+                 lambda: (carry_scan.carry_scan_plain(ones),), results,
+                 "probes")
+    results["carry_scan"]["library_ms"] = cuda_ms(
+        lambda: torch.cumsum(ones, 0, dtype=torch.int32), "torch.cumsum")
+    bound(results, "carry_scan", 8 * n, n)
+    del ones
+    rnd = full_range(n, 6, dev)
+    got = check_kernel("carry_scan[full range]",
+                       lambda: (carry_scan.carry_scan(rnd),),
+                       lambda: (carry_scan.carry_scan_plain(rnd),), None,
+                       "probes")
+    ms_a_byte = 1e3 / hbm_bytes_per_s()
+    scan = results["carry_scan"]
+    say("probes", f"carry_scan {n} rows: ones {scan['ms']:.3f} ms, full "
+        f"range {got['ms']:.3f} ms; bound {8 * n * ms_a_byte:.3f} ms at 8 B "
+        f"a row ({12 * n * ms_a_byte:.3f} at a three-pass scan's "
+        f"12); torch.cumsum {scan['library_ms']:.3f} ms")
+    del rnd
+
+    n = bench_mat2.N // 4
+    cols = {"ones": torch.ones(n, dtype=torch.int32, device=dev),
+            "full range": full_range(n, 7, dev)}
+    for rolls in bench_mat2.ROLLS:
+        for what, col in cols.items():
+            got = check_kernel(
+                f"shift_loop[rolls={rolls}, {what}]",
+                lambda: (shift_loop.shift_loop(col, rolls),),
+                lambda: (shift_loop.shift_loop_plain(col, rolls),), None,
+                "probes")
+            if (rolls, what) == (20, "ones"):   # the line's entry
+                results["shift_loop"].update(got)
+        say("probes", f"shift_loop rolls={rolls}, {n} rows: {got['ms']:.3f} "
+            f"ms; HBM bound {8 * n / hbm_bytes_per_s() * 1e3:.3f} ms, shared"
+            f" memory {4 * rolls * n / 1e9:.3f} GB read")
+    bound(results, "shift_loop", 8 * n, 20 * n)
+    del cols
+
+    for name, fn, path in (
+            ("primitives", primitives.main, ("stream_scale", "smem_gather")),
+            ("bench_mat2", bench_mat2.main,
+             ("carry_scan", "shift_loop", "expand_runs", "expand_groups"))):
+        t0 = time.perf_counter()
+        rc, launches = _counted(lambda fn=fn: fn([]), path, name)
+        if rc != 0:
+            raise AssertionError(f"{name}: exit {rc}")
+        for kernel in path[:2]:
+            results[kernel]["launches"] = launches[kernel]
+        say("probes", f"{name} at full size: {time.perf_counter() - t0:.3f}"
+            f" s; launches {launches}")
+        torch.cuda.empty_cache()
+
+
 def check_dense_slice(out: dict) -> None:
     """The dense slice materialized every pair on fill and checked each."""
     if out.get("pair_kernel") != "fill":
@@ -531,6 +687,8 @@ def main(argv=None) -> int:
     say("device", f"{kind}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    say("device", f"HBM peak {hbm_bytes_per_s() / 1e9:.0f} GB/s "
+        f"(tpujoin_torch/utils/hw.py)")
 
     t0 = time.perf_counter()
     _build.build()
@@ -559,6 +717,14 @@ def main(argv=None) -> int:
                         "replaces": "tpujoin/kernels/compact.py:342"},
         "compact_cols": {"source": src + "compact.cu",
                          "replaces": "tpujoin/kernels/compact.py:462"},
+        "stream_scale": {"source": src + "primitives.cu",
+                         "replaces": "bench/primitives.py:132"},
+        "smem_gather": {"source": src + "primitives.cu",
+                        "replaces": "bench/primitives.py:100"},
+        "carry_scan": {"source": src + "bench_mat2.cu",
+                       "replaces": "exp/bench_mat2.py:60"},
+        "shift_loop": {"source": src + "bench_mat2.cu",
+                       "replaces": "exp/bench_mat2.py:94"},
     }
     low = bench.scaled_config("ref_low_selectivity", args.scale)
     high = bench.scaled_config("ref_high_selectivity")
@@ -575,6 +741,7 @@ def main(argv=None) -> int:
             record=("expand_fill",))),
         lambda: k6_phase(dev, results),
         lambda: ops_phase(dev, results),
+        lambda: probes_phase(dev, results),
     )
     for phase in phases:
         t0 = time.perf_counter()

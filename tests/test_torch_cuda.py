@@ -15,9 +15,10 @@ import tpujoin_torch
 from tpujoin_torch import oracle
 from tpujoin_torch.ops import aggregate as agg
 from tpujoin_torch.ops import filter as flt
-from tpujoin_torch.kernels import (compact, expand, expand_fill,
+from tpujoin_torch.kernels import (carry_scan, compact, expand, expand_fill,
                                    expand_groups, expand_runs, merge_count,
-                                   merge_sort)
+                                   merge_sort, shift_loop, smem_gather,
+                                   stream)
 
 pytestmark = pytest.mark.skipif(
     "not torch.cuda.is_available()",
@@ -312,3 +313,87 @@ def test_nested_loop_join_on_card():
     cr, cs = tpujoin_torch.nested_loop_join(rk, sk, device="cpu")
     np.testing.assert_array_equal(r, cr)
     np.testing.assert_array_equal(s, cs)
+
+
+def _full_range(n: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    x = rng.integers(IMIN, IMAX, n, endpoint=True).astype(np.int32)
+    x[:min(n, 4)] = np.array([IMAX, IMIN, -1, IMAX], np.int32)[:min(n, 4)]
+    return torch.from_numpy(x).cuda()
+
+
+@pytest.mark.parametrize("n", [0, 1, carry_scan.TILE, carry_scan.TILE + 1,
+                               3 * carry_scan.TILE + 17, (1 << 22) + 5])
+@pytest.mark.parametrize("values", ["ones", "full_range"])
+def test_carry_scan_kernel(n, values):
+    """The look-back scan at n = 0, one row, one tile, a tile and a row, a
+    ragged third tile and ~1000 tiles, with values that wrap."""
+    x = (torch.ones(n, dtype=torch.int32, device="cuda") if values == "ones"
+         else _full_range(n, n))
+    before = carry_scan.LAUNCHES
+    want = carry_scan.carry_scan_plain(x)
+    for _ in range(2):      # the status words are zeroed before each launch
+        _equal((carry_scan.carry_scan(x),), (want,))
+    assert carry_scan.LAUNCHES == before + 2 * (n > 0)
+
+
+@pytest.mark.parametrize("rolls", [0, 1, 4, 20, 1024, 1500])
+@pytest.mark.parametrize("tiles", [1, 3, 1000])
+def test_shift_loop_kernel(rolls, tiles):
+    x = _full_range(tiles * shift_loop.TILE, rolls + tiles)
+    before = shift_loop.LAUNCHES
+    _equal((shift_loop.shift_loop(x, rolls),),
+           (shift_loop.shift_loop_plain(x, rolls),))
+    assert shift_loop.LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("tbl_n", [1, 1000, 16384])
+@pytest.mark.parametrize("n", [0, 1, 65536, 100_003])
+def test_smem_gather_kernel(tbl_n, n):
+    tbl = _full_range(tbl_n, 9)
+    idx = torch.randint(0, tbl_n, (n,), dtype=torch.int32, device="cuda")
+    before = smem_gather.LAUNCHES
+    _equal((smem_gather.smem_gather(tbl, idx),),
+           (smem_gather.smem_gather_plain(tbl, idx),))
+    assert smem_gather.LAUNCHES == before + (n > 0)
+
+
+def test_smem_gather_largest_table():
+    limit = smem_gather.max_table_entries(torch.device("cuda"))
+    tbl = _full_range(limit, 10)
+    idx = torch.randint(0, limit, (1 << 18,), dtype=torch.int32,
+                        device="cuda")
+    _equal((smem_gather.smem_gather(tbl, idx),),
+           (smem_gather.smem_gather_plain(tbl, idx),))
+    with pytest.raises(ValueError, match="shared memory"):
+        smem_gather.smem_gather(_full_range(limit + 1, 11), idx)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 1027, (1 << 22) + 1])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_stream_scale_kernel(n, offset):
+    """On the i32 extremes, with the vector path (offset 0) and with a
+    column that starts off 16-byte alignment (offset 1)."""
+    x = _full_range(n + offset, n)[offset:]
+    before = stream.LAUNCHES
+    got = stream.stream_scale(x)
+    _equal((got,), (stream.stream_scale_plain(x),))
+    assert stream.LAUNCHES == before + (n > 0)
+    ext = torch.tensor([IMAX, IMIN, -1, 0, 1, IMAX - 1, IMIN + 1],
+                       dtype=torch.int32, device="cuda")
+    assert stream.stream_scale(ext).tolist() == [-2, 0, -2, 0, 2, -4, 2]
+
+
+def test_probe_wrappers_refuse_bad_input():
+    x = torch.arange(2048, dtype=torch.int32, device="cuda")
+    for bad in (x[::2], x.long()):
+        with pytest.raises(ValueError):
+            stream.stream_scale(bad)
+        with pytest.raises(ValueError):
+            carry_scan.carry_scan(bad)
+        with pytest.raises(ValueError):
+            smem_gather.smem_gather(x, bad)
+    with pytest.raises(ValueError):
+        shift_loop.shift_loop(x[:1000], 1)
+    with pytest.raises(ValueError):
+        smem_gather.smem_gather(x, x.cpu())

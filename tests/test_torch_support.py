@@ -17,6 +17,7 @@ from tpujoin import oracle as jax_oracle
 from tpujoin.utils import shapes as jax_shapes
 from tpujoin_torch import bench, oracle, profile
 from tpujoin_torch.core import config, datagen
+from tpujoin_torch.probes import bench_mat2, primitives
 from tpujoin_torch.utils import hw, shapes, timing
 
 REPO = Path(__file__).resolve().parent.parent
@@ -125,9 +126,10 @@ def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None\n"
             "import tpujoin_torch, tpujoin_torch.bench, tpujoin_torch.oracle, "
             "tpujoin_torch.profile\n"
-            "from tpujoin_torch.kernels import _build, compact, expand, "
-            "expand_fill, expand_groups, expand_runs, merge_count, "
-            "merge_sort\n"
+            "from tpujoin_torch.kernels import _build, carry_scan, compact, "
+            "expand, expand_fill, expand_groups, expand_runs, merge_count, "
+            "merge_sort, shift_loop, smem_gather, stream\n"
+            "from tpujoin_torch.probes import bench_mat2, primitives\n"
             "from tpujoin_torch.ops import aggregate, filter, "
             "nested_loop_join, radix, sort\n"
             "from tpujoin_torch.core import table\n"
@@ -161,6 +163,8 @@ def test_gpu_entry_points_refuse_without_cuda(tmp_path):
         assert bench.main(["--op", op, "--rows", "1000"]) == 1
     for op in ("filter", "aggregate"):
         assert profile.main(["--op", op, "--rows", "1000"]) == 1
+    assert primitives.main(["--rows", "1000"]) == 1
+    assert bench_mat2.main(["pscan", "--n", "4096"]) == 1
 
 
 _KEYS = np.arange(1, 65, dtype=np.int32)
@@ -218,10 +222,17 @@ def test_profile_busy_time_is_the_union_of_intervals(intervals, busy):
 def test_cpu_tensor_only_takes_plain_versions():
     """A tensor that is neither on the CPU nor CUDA is refused, not sent to
     a plain version."""
-    from tpujoin_torch.kernels import _build
+    from tpujoin_torch.kernels import (_build, carry_scan, shift_loop,
+                                       smem_gather, stream)
     meta = torch.empty(4, dtype=torch.int32, device="meta")
     assert not _build.on_cpu(meta)
     with pytest.raises(ValueError):
         _build.check_cuda_i32(meta)
     with pytest.raises(ValueError):
         _build.check_cuda_i32(torch.zeros(4, dtype=torch.int64))
+    tile = torch.empty(1024, dtype=torch.int32, device="meta")
+    for wrapper in (stream.stream_scale, carry_scan.carry_scan,
+                    lambda x: shift_loop.shift_loop(x, 4),
+                    lambda x: smem_gather.smem_gather(x, x)):
+        with pytest.raises(ValueError):
+            wrapper(tile)

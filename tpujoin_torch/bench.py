@@ -34,7 +34,7 @@ import torch
 
 from tpujoin_torch import oracle
 from tpujoin_torch.core.config import PRESETS, JoinConfig
-from tpujoin_torch.core.datagen import make_keys
+from tpujoin_torch.core.datagen import generator, make_keys
 from tpujoin_torch.ops import aggregate as agg
 from tpujoin_torch.ops import filter as flt
 from tpujoin_torch.ops.hash_join import build
@@ -66,8 +66,7 @@ def _device_name(device: torch.device) -> str:
 def config_keys(cfg: JoinConfig, device: torch.device):
     """The build and probe keys of ``cfg``, made on ``device`` from its
     seed."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(cfg.seed)
+    gen = generator(cfg.seed, device)
     bk = make_keys(gen, cfg.build_rows, cfg.key_min, cfg.key_max,
                    cfg.distribution, cfg.zipf_s)
     pk = make_keys(gen, cfg.probe_rows, cfg.key_min, cfg.key_max,
@@ -250,12 +249,6 @@ def bench_join(cfg: JoinConfig, verify: bool,
     }
 
 
-def _generator(seed: int, device: torch.device) -> torch.Generator:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    return gen
-
-
 def _compaction(device: torch.device) -> str:
     """What compacts on ``device``: K6 on the card, the plain version on
     the CPU."""
@@ -265,7 +258,7 @@ def _compaction(device: torch.device) -> str:
 def filter_values(rows: int, device: torch.device) -> torch.Tensor:
     """The filter's column: f32 uniform in [0, 160) from seed 0, so the
     predicate keeps about half the rows."""
-    return torch.rand(rows, generator=_generator(0, device),
+    return torch.rand(rows, generator=generator(0, device),
                       device=device) * 160.0
 
 
@@ -310,8 +303,8 @@ def bench_filter(rows: int, verify: bool,
 def aggregate_inputs(rows: int, key_max: int, device: torch.device):
     """The aggregate's keys, uniform in [1, key_max] from seed 0, and
     values, uniform in [0, 1e6] from seed 1."""
-    keys = make_keys(_generator(0, device), rows, 1, key_max)
-    vals = make_keys(_generator(1, device), rows, 0, 1_000_000)
+    keys = make_keys(generator(0, device), rows, 1, key_max)
+    vals = make_keys(generator(1, device), rows, 0, 1_000_000)
     sync(device)
     return keys, vals
 
@@ -383,7 +376,7 @@ def bench_sort(rows: int, device: torch.device | str = "cuda") -> dict:
     """Key + id sort, the primitive under the build and probe phases
     (``sort_with_ids``: torch.sort, the counterpart of jax.lax.sort)."""
     device = torch.device(device)
-    keys = make_keys(_generator(0, device), rows, 1, 1 << 30)
+    keys = make_keys(generator(0, device), rows, 1, 1 << 30)
     sync(device)
     stat = time_fn(sort_with_ids, keys, device=device, name="sort_keyval",
                    rows=rows, bytes_touched=rows * 16)

@@ -10,6 +10,13 @@ from __future__ import annotations
 import torch
 
 
+def generator(seed: int, device: torch.device | str) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def uniform_keys(gen: torch.Generator, n: int, key_min: int,
                  key_max: int) -> torch.Tensor:
     """Uniform i32 keys in [key_min, key_max] on ``gen``'s device."""

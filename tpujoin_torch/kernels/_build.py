@@ -40,6 +40,10 @@ _SIGNATURES = {
     "tj_expand": (P, P, P, I64, P, P, I64, P),
     "tj_expand_fill": (P, P, I64, P, P, P, I64, P, I64, I64, P, P, I64, P),
     "tj_expand_runs": (P, P, P, I64, P, I64, I64, P, P, I64, P),
+    "tj_stream_scale": (P, P, I64, P),
+    "tj_smem_gather": (P, I64, P, P, I64, P),
+    "tj_carry_scan": (P, P, I64, P, I64, P),
+    "tj_shift_loop": (P, P, I64, I64, P),
 }
 
 _lib: ctypes.CDLL | None = None
