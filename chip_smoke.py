@@ -43,7 +43,18 @@ Phases, one line each (details on stderr):
               shift_loop on 2^28 rows at rolls 1, 4, 10 and 20; then both
               probe programs (tpujoin_torch.probes.primitives and
               .bench_mat2) at full size, each kernel's launch counter above
-              0 for that run.
+              0 for that run;
+  9. variants the design-probe kernels against their plain versions on
+              their programs' own full-size inputs, bitwise and timed:
+              merge_count_v, every strategy, on the count_variants
+              program's sorted keys (ref_low, 100M x 100M in [1, 1e9], with
+              K2 merge_count timed on the same keys, and ref_high),
+              expand_fill_v, every variant, on fill_variants' 999,100,000
+              slots, run_variant, every variant, on profile_expand_runs'
+              100M slots, and fill_forward at steps 16K, 32K and 64K on
+              probe_fill's marker column (~1e9 slots); then the four
+              programs at full size, each kernel's launch counter above 0
+              for its program's run.
 Then one JSON line of per-kernel results (times, launches, the bound from
 this run's shapes, the library call's time where one computes the same
 function), the wall time, and last the line
@@ -69,12 +80,14 @@ from tpujoin_torch import bench, merge_join, oracle
 from tpujoin_torch.core import datagen
 from tpujoin_torch.kernels import (_build, carry_scan, compact, expand,
                                    expand_fill, expand_groups, expand_runs,
-                                   merge_count, merge_sort, shift_loop,
-                                   smem_gather, stream)
+                                   fill_phases, forward_fill, merge_count,
+                                   merge_sort, runs_phases, shift_loop,
+                                   slab_count, smem_gather, stream)
 from tpujoin_torch.ops import aggregate as agg
 from tpujoin_torch.ops import merge_join as mj
 from tpujoin_torch.ops.hash_join import build
-from tpujoin_torch.probes import bench_mat2, primitives
+from tpujoin_torch.probes import (bench_mat2, count_variants, fill_variants,
+                                  primitives, probe_fill, profile_expand_runs)
 from tpujoin_torch.utils.hw import hbm_peak_gbps
 from tpujoin_torch.utils.shapes import round_up
 
@@ -419,7 +432,11 @@ COUNTERS = {"block_sort": (merge_sort, "LAUNCHES"),
             "stream_scale": (stream, "LAUNCHES"),
             "smem_gather": (smem_gather, "LAUNCHES"),
             "carry_scan": (carry_scan, "LAUNCHES"),
-            "shift_loop": (shift_loop, "LAUNCHES")}
+            "shift_loop": (shift_loop, "LAUNCHES"),
+            "merge_count_v": (slab_count, "LAUNCHES"),
+            "expand_fill_v": (fill_phases, "LAUNCHES"),
+            "run_variant": (runs_phases, "LAUNCHES"),
+            "fill_forward": (forward_fill, "LAUNCHES")}
 
 
 def zero_counters() -> None:
@@ -661,6 +678,112 @@ def probes_phase(dev, results: dict) -> None:
         torch.cuda.empty_cache()
 
 
+MC_STRATEGIES = ("fat512", "fatc512", "fatc256", "fatc128", "diag128",
+                 "quad256")
+FILL_STEP = 32768            # the JAX kernel's default step
+
+
+def variants_phase(dev, results: dict) -> None:
+    """The four design-probe kernels against their plain versions on their
+    programs' full-size inputs (exact), every strategy or variant, timed;
+    then the four programs at full size, each kernel launched in its
+    program's run."""
+    runs = {}
+    for workload, rows, key_max in count_variants.WORKLOADS:
+        bk, pk = count_variants.sorted_keys(rows, key_max, dev)
+        for strategy in MC_STRATEGIES:
+            got = check_kernel(
+                f"merge_count_v[{workload}, {strategy}]",
+                lambda s=strategy: slab_count.merge_count_v(bk, pk, s),
+                lambda: slab_count.merge_count_v_plain(bk, pk), None,
+                "variants")
+            if workload == "ref_low":
+                runs[strategy] = got
+        if workload == "ref_low":    # the line's entry: the fastest
+            best = min(runs, key=lambda k: runs[k]["ms"])
+            results["merge_count_v"].update(runs[best])
+            bound(results, "merge_count_v", 4 * rows + 12 * rows, 2 * rows)
+            k2 = cuda_ms(lambda: merge_count.merge_count(bk, pk),
+                         "merge_count")
+            say("variants", f"ref_low {rows} x {rows}: fastest strategy "
+                f"{best} {runs[best]['ms']:.3f} ms; K2 merge_count on the "
+                f"same keys {k2:.3f} ms; bound "
+                f"{results['merge_count_v']['bound_ms']:.3f} ms")
+        del bk, pk
+        torch.cuda.empty_cache()
+
+    *state, cap = fill_variants.inputs(fill_variants.GROUPS, dev)
+    nruns, ngroups, total = state[6:]
+    runs = {}
+    for variant in fill_phases.VARIANTS:
+        runs[variant] = check_kernel(
+            f"expand_fill_v[{variant}, step {FILL_STEP}]",
+            lambda v=variant: fill_phases.expand_fill_v(*state, cap,
+                                                        FILL_STEP, v),
+            lambda v=variant: fill_phases.expand_fill_v_plain(
+                *state, cap, FILL_STEP, v), None, "variants")
+    results["expand_fill_v"].update(runs["full"])
+    src_read = ngroups * fill_variants.NB
+    bound(results, "expand_fill_v",
+          8 * nruns + 12 * ngroups + 4 * src_read + 8 * cap, cap)
+    say("variants", f"expand_fill_v {total} pairs, capacity {cap}: " + ", "
+        .join(f"{v} {runs[v]['ms']:.3f}" for v in fill_phases.VARIANTS)
+        + " ms")
+    del state
+    torch.cuda.empty_cache()
+
+    *cols, nonzero, capacity = profile_expand_runs.inputs(
+        profile_expand_runs.RUNS, dev)
+    runs_phases.check_bases(cols[0], cols[3], cols[4], cols[5], nonzero,
+                            capacity)
+    runs = {}
+    for variant in runs_phases.VARIANTS:
+        runs[variant] = check_kernel(
+            f"run_variant[{variant}]",
+            lambda v=variant: runs_phases.run_variant(
+                *cols, nonzero, capacity, capacity, v),
+            lambda v=variant: runs_phases.run_variant_plain(
+                *cols, nonzero, capacity, capacity, v), None, "variants")
+    results["run_variant"].update(runs["full"])
+    bound(results, "run_variant",
+          12 * nonzero + 4 * cols[3].shape[0] + 8 * capacity, capacity)
+    say("variants", f"run_variant {capacity} slots: " + ", ".join(
+        f"{v} {runs[v]['ms']:.3f}" for v in runs_phases.VARIANTS) + " ms")
+    del cols
+    torch.cuda.empty_cache()
+
+    offs_c, sid_c, total, nonzero, cap = probe_fill.compacted_runs(
+        10_000_000, 100_000, dev)
+    mark2d = forward_fill.scatter_markers(offs_c, sid_c, nonzero, cap)
+    del offs_c, sid_c
+    runs = {}
+    for step in probe_fill.STEPS:
+        runs[step] = check_kernel(
+            f"fill_forward[step {step}]",
+            lambda s=step: (forward_fill.fill_forward(mark2d, s),),
+            lambda s=step: (forward_fill.fill_forward_plain(mark2d, s),),
+            None, "variants")
+    results["fill_forward"].update(runs[probe_fill.CHECK_STEP])
+    bound(results, "fill_forward", 8 * cap, cap)
+    del mark2d
+    torch.cuda.empty_cache()
+
+    for name, mod, kernel in (
+            ("count_variants", count_variants, "merge_count_v"),
+            ("fill_variants", fill_variants, "expand_fill_v"),
+            ("profile_expand_runs", profile_expand_runs, "run_variant"),
+            ("probe_fill", probe_fill, "fill_forward")):
+        t0 = time.perf_counter()
+        rc, launches = _counted(lambda mod=mod: mod.main([]), (kernel,), name)
+        if rc != 0:
+            raise AssertionError(f"{name}: exit {rc}")
+        results[kernel]["launches"] = launches[kernel]
+        say("variants", f"{name} at full size: "
+            f"{time.perf_counter() - t0:.3f} s; {launches[kernel]} "
+            f"{kernel} launches")
+        torch.cuda.empty_cache()
+
+
 def check_dense_slice(out: dict) -> None:
     """The dense slice materialized every pair on fill and checked each."""
     if out.get("pair_kernel") != "fill":
@@ -725,6 +848,14 @@ def main(argv=None) -> int:
                        "replaces": "exp/bench_mat2.py:60"},
         "shift_loop": {"source": src + "bench_mat2.cu",
                        "replaces": "exp/bench_mat2.py:94"},
+        "merge_count_v": {"source": src + "count_variants.cu",
+                          "replaces": "exp/count_variants.py:156"},
+        "expand_fill_v": {"source": src + "expand_pairs.cu",
+                          "replaces": "exp/fill_variants.py:251"},
+        "run_variant": {"source": src + "profile_expand_runs.cu",
+                        "replaces": "exp/profile_expand_runs.py:126"},
+        "fill_forward": {"source": src + "probe_fill.cu",
+                         "replaces": "exp/probe_fill.py:64"},
     }
     low = bench.scaled_config("ref_low_selectivity", args.scale)
     high = bench.scaled_config("ref_high_selectivity")
@@ -742,6 +873,7 @@ def main(argv=None) -> int:
         lambda: k6_phase(dev, results),
         lambda: ops_phase(dev, results),
         lambda: probes_phase(dev, results),
+        lambda: variants_phase(dev, results),
     )
     for phase in phases:
         t0 = time.perf_counter()

@@ -16,9 +16,11 @@ from tpujoin_torch import oracle
 from tpujoin_torch.ops import aggregate as agg
 from tpujoin_torch.ops import filter as flt
 from tpujoin_torch.kernels import (carry_scan, compact, expand, expand_fill,
-                                   expand_groups, expand_runs, merge_count,
-                                   merge_sort, shift_loop, smem_gather,
-                                   stream)
+                                   expand_groups, expand_runs, fill_phases,
+                                   forward_fill, merge_count, merge_sort,
+                                   runs_phases, shift_loop, slab_count,
+                                   smem_gather, stream)
+from tpujoin_torch.probes import fill_variants, profile_expand_runs
 
 pytestmark = pytest.mark.skipif(
     "not torch.cuda.is_available()",
@@ -397,3 +399,149 @@ def test_probe_wrappers_refuse_bad_input():
         shift_loop.shift_loop(x[:1000], 1)
     with pytest.raises(ValueError):
         smem_gather.smem_gather(x, x.cpu())
+
+
+MC_STRATEGIES = ["fat512", "fatc512", "fatc256", "fatc128", "diag128",
+                 "quad256", "diag4"]
+
+
+@pytest.mark.parametrize("strategy", MC_STRATEGIES)
+@pytest.mark.parametrize("n,m,dist", [(0, 300, "dups"), (1, 1, "dups"),
+                                      (1024, 1024, "dups"),
+                                      (2500, 3100, "dups"),
+                                      (100_003, 300_001, "wide"),
+                                      (5000, 7000, "extremes")])
+def test_slab_count_kernel(strategy, n, m, dist):
+    """merge_count_v at ragged sizes, keys with long duplicate runs, spread
+    over the i32 range, or at its extremes (below INT32_MAX, the pad)."""
+    rng = np.random.default_rng(n + m)
+    if dist == "dups":
+        b, p = rng.integers(0, 300, n), rng.integers(-5, 320, m)
+    elif dist == "wide":
+        b, p = (rng.integers(IMIN, IMAX - 1, x) for x in (n, m))
+    else:
+        ext = np.array([IMIN, IMIN + 1, -1, 0, IMAX - 2, IMAX - 1])
+        b, p = rng.choice(ext, n), rng.choice(ext, m)
+    b = torch.from_numpy(np.sort(b).astype(np.int32)).cuda()
+    p = torch.from_numpy(np.sort(p).astype(np.int32)).cuda()
+    before = slab_count.LAUNCHES
+    _equal(slab_count.merge_count_v(b, p, strategy),
+           slab_count.merge_count_v_plain(b, p))
+    assert slab_count.LAUNCHES == before + (m > 0)
+
+
+def test_slab_count_lo_above_every_build_key():
+    b = torch.ones(1024, dtype=torch.int32, device="cuda")
+    p = torch.full((1024,), 2, dtype=torch.int32, device="cuda")
+    for strategy in ("fat512", "diag128"):
+        lo, cnt = slab_count.merge_count_v(b, p, strategy)
+        assert (lo == 1024).all() and not cnt.any()
+
+
+def _uneven_runs(seed: int):
+    """~800 runs of 1-40 slots with random build starts and a full-range
+    source, slab bases that make raw source offsets negative."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, 41, 800)
+    offs = np.cumsum(counts) - counts
+    k = len(counts)
+    total = int(offs[-1] + counts[-1]) - 300
+    capacity = total + 5000
+    steps = -(-capacity // runs_phases.STEP)
+    cols = [np.full(runs_phases.META, IMAX), np.zeros(runs_phases.META),
+            np.zeros(runs_phases.META)]
+    cols[0][:k], cols[1][:k], cols[2][:k] = (offs, rng.integers(0, 6000, k),
+                                             rng.permutation(k))
+    cols += [rng.integers(IMIN, IMAX, 12288, endpoint=True),
+             np.zeros(steps), np.arange(steps) % 3 * 2048 + 1024]
+    cols = [torch.from_numpy(c.astype(np.int32)).cuda() for c in cols]
+    return cols, k, total, capacity
+
+
+@pytest.mark.parametrize("variant", runs_phases.VARIANTS)
+@pytest.mark.parametrize("case", ["gapless", "uneven"])
+def test_run_variant_kernel(variant, case):
+    if case == "gapless":
+        *cols, k, capacity = profile_expand_runs.inputs(30_000,
+                                                        torch.device("cuda"))
+        total = capacity
+    else:
+        cols, k, total, capacity = _uneven_runs(3)
+    runs_phases.check_bases(cols[0], cols[3], cols[4], cols[5], k, capacity)
+    before = runs_phases.LAUNCHES
+    _equal(runs_phases.run_variant(*cols, k, total, capacity, variant),
+           runs_phases.run_variant_plain(*cols, k, total, capacity, variant))
+    assert runs_phases.LAUNCHES == before + 1
+
+
+def _marks(n: int, every: int, seed: int) -> torch.Tensor:
+    """n slots of -1 and other negatives, with markers (values up to
+    INT32_MAX) about ``every`` slots apart (none when every is 0)."""
+    rng = np.random.default_rng(seed)
+    mark = rng.integers(-9, 0, n).astype(np.int32)
+    if every:
+        at = rng.integers(0, n, n // every)
+        mark[at] = rng.integers(0, IMAX, len(at), endpoint=True)
+    return torch.from_numpy(mark.reshape(-1, 128)).cuda()
+
+
+@pytest.mark.parametrize("step", [8192, 16384, 65536])
+@pytest.mark.parametrize("tiles", [1, 3, 200])
+@pytest.mark.parametrize("every", [0, 100, 50_000, 3_000_000])
+def test_fill_forward_kernel(step, tiles, every):
+    """Dense markers, markers rarer than a tile (tiles pass the value
+    before them on), and none at all (every slot -1)."""
+    mark = _marks(step * tiles, every, step + tiles + every)
+    before = forward_fill.LAUNCHES
+    for _ in range(2):      # the status words are zeroed before each launch
+        _equal((forward_fill.fill_forward(mark, step),),
+               (forward_fill.fill_forward_plain(mark, step),))
+    assert forward_fill.LAUNCHES == before + 2
+
+
+def test_scatter_markers_on_card():
+    rng = np.random.default_rng(1)
+    counts = rng.integers(1, 50, 30_000)
+    offs = torch.from_numpy((np.cumsum(counts) - counts).astype(np.int32))
+    sid = torch.from_numpy(rng.permutation(30_000).astype(np.int32))
+    cap = 1 << 20
+    got = forward_fill.scatter_markers(offs.cuda(), sid.cuda(), 25_000, cap)
+    want = forward_fill.scatter_markers(offs, sid, 25_000, cap)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("variant", list(fill_phases.VARIANTS))
+@pytest.mark.parametrize("ngroups,extra", [(1, 0), (300, 1001), (20_000, 5),
+                                          (0, 100)])
+@pytest.mark.parametrize("step", [1024, 16384])
+def test_expand_fill_v_kernel(variant, ngroups, extra, step):
+    runs, groups, src, k, ng, total = _rle_state(ngroups, ngroups + extra)
+    args = (runs["roff"], runs["sid"], groups["goff"], groups["glo"],
+            groups["gnb"], src, k, ng, total, total + extra)
+    before = fill_phases.LAUNCHES
+    got = fill_phases.expand_fill_v(*args, step, variant)
+    _equal(got, fill_phases.expand_fill_v_plain(*args, step, variant))
+    assert fill_phases.LAUNCHES == before + (total + extra > 0)
+    if fill_phases.VARIANTS[variant] == 0 and total + extra:
+        cap = total + extra
+        _equal([c[:cap] for c in got],
+               expand_fill.expand_fill(*args[:-1], cap))
+
+
+def test_expand_fill_v_on_the_program_layout():
+    *state, cap = fill_variants.inputs(30, torch.device("cuda"))
+    r, s = fill_phases.expand_fill_v(*state, cap, 32768, "full")
+    assert fill_variants.check_analytic(r, s, state[-1])
+
+
+def test_variant_wrappers_refuse_bad_input():
+    x = torch.arange(4096, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        slab_count.merge_count_v(x, x, "fat256")
+    with pytest.raises(ValueError):
+        slab_count.merge_count_v(x, x.cpu(), "fat512")
+    with pytest.raises(ValueError):
+        forward_fill.fill_forward(x.reshape(-1, 128)[:, ::2], 8192)
+    with pytest.raises(ValueError):
+        forward_fill.fill_forward(torch.zeros(64, 128, dtype=torch.int32,
+                                              device="cuda"), 16384)

@@ -10,6 +10,7 @@ import importlib.util
 import json
 import re
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -30,30 +31,53 @@ REPO = Path(__file__).resolve().parent.parent
 IMIN, IMAX = np.iinfo(np.int32).min, np.iinfo(np.int32).max
 
 
-@pytest.fixture(scope="module")
-def jax_mat2():
-    """exp/bench_mat2.py as a module (its main() does not run). The file
-    puts a fixed directory first on sys.path before it imports tpujoin, so
-    the tpujoin modules it uses are imported from this checkout first, and
-    sys.path is restored after it ran."""
-    from tpujoin.core import datagen
-    from tpujoin.ops import hash_join, merge_join
-    from tpujoin.utils import shapes, timing
-    ours = (datagen, merge_join, hash_join, shapes, timing)
+class _InterpretPallas(types.ModuleType):
+    """jax.experimental.pallas with pallas_call in interpret mode."""
+
+    def __init__(self):
+        super().__init__("pallas_interpret")
+        self.pallas_call = functools.partial(pl.pallas_call, interpret=True)
+
+    def __getattr__(self, name):
+        return getattr(pl, name)
+
+
+def load_exp(name: str, interpret: bool = False):
+    """exp/<name>.py as a module (its main() does not run), unchanged.
+    The file puts a fixed directory first on sys.path before it imports
+    tpujoin, so the checkout's tpujoin package is imported first (its
+    submodules then resolve inside it), sys.path is restored after the
+    file ran, and every tpujoin name the file holds must come from this
+    checkout. With ``interpret``, its ``pl.pallas_call`` runs in interpret
+    mode, as the JAX package's own tests run its kernels on the CPU."""
+    import tpujoin  # noqa: F401
     spec = importlib.util.spec_from_file_location(
-        "exp_bench_mat2", REPO / "exp" / "bench_mat2.py")
+        f"exp_{name}", REPO / "exp" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     saved = list(sys.path)
     try:
         spec.loader.exec_module(mod)
     finally:
         sys.path[:] = saved
-    used = (mod.datagen, mod.mj, sys.modules[mod.build.__module__],
-            sys.modules[mod.round_up.__module__],
-            sys.modules[mod.time_fn.__module__])
-    assert used == ours
-    for m in used:
-        assert Path(m.__file__).resolve().is_relative_to(REPO), m.__file__
+    for value in vars(mod).values():
+        origin = (value if isinstance(value, types.ModuleType)
+                  else sys.modules.get(getattr(value, "__module__", "")))
+        if (origin is not None and origin.__name__.split(".")[0] == "tpujoin"
+                and getattr(origin, "__file__", None)):
+            path = Path(origin.__file__).resolve()
+            assert path.is_relative_to(REPO), path
+    if interpret:
+        mod.pl = _InterpretPallas()
+    return mod
+
+
+@pytest.fixture(scope="module")
+def jax_mat2():
+    """exp/bench_mat2.py as a module."""
+    mod = load_exp("bench_mat2")
+    from tpujoin.core import datagen
+    from tpujoin.ops import merge_join
+    assert mod.datagen is datagen and mod.mj is merge_join
     return mod
 
 

@@ -17,7 +17,8 @@ from tpujoin import oracle as jax_oracle
 from tpujoin.utils import shapes as jax_shapes
 from tpujoin_torch import bench, oracle, profile
 from tpujoin_torch.core import config, datagen
-from tpujoin_torch.probes import bench_mat2, primitives
+from tpujoin_torch.probes import (bench_mat2, count_variants, fill_variants,
+                                  primitives, probe_fill, profile_expand_runs)
 from tpujoin_torch.utils import hw, shapes, timing
 
 REPO = Path(__file__).resolve().parent.parent
@@ -127,9 +128,11 @@ def test_port_imports_without_jax():
             "import tpujoin_torch, tpujoin_torch.bench, tpujoin_torch.oracle, "
             "tpujoin_torch.profile\n"
             "from tpujoin_torch.kernels import _build, carry_scan, compact, "
-            "expand, expand_fill, expand_groups, expand_runs, merge_count, "
-            "merge_sort, shift_loop, smem_gather, stream\n"
-            "from tpujoin_torch.probes import bench_mat2, primitives\n"
+            "expand, expand_fill, expand_groups, expand_runs, fill_phases, "
+            "forward_fill, merge_count, merge_sort, runs_phases, shift_loop, "
+            "slab_count, smem_gather, stream\n"
+            "from tpujoin_torch.probes import bench_mat2, count_variants, "
+            "fill_variants, primitives, probe_fill, profile_expand_runs\n"
             "from tpujoin_torch.ops import aggregate, filter, "
             "nested_loop_join, radix, sort\n"
             "from tpujoin_torch.core import table\n"
@@ -165,6 +168,10 @@ def test_gpu_entry_points_refuse_without_cuda(tmp_path):
         assert profile.main(["--op", op, "--rows", "1000"]) == 1
     assert primitives.main(["--rows", "1000"]) == 1
     assert bench_mat2.main(["pscan", "--n", "4096"]) == 1
+    assert count_variants.main(["--scale", "0.0001"]) == 1
+    assert fill_variants.main(["--groups", "2"]) == 1
+    assert profile_expand_runs.main(["--runs", "300"]) == 1
+    assert probe_fill.main(["--rows", "1000"]) == 1
 
 
 _KEYS = np.arange(1, 65, dtype=np.int32)

@@ -22,7 +22,8 @@
 //   - it publishes (flag, value) as one 64-bit status word per tile: first
 //     its aggregate, then, once known, its inclusive prefix;
 //   - warp 0 looks back over the predecessors 32 at a time with volatile
-//     loads, adding aggregates until it meets an inclusive prefix;
+//     loads, adding aggregates until it meets an inclusive prefix
+//     (lookback.cuh, with the `+` operator);
 //   - the rows go back out coalesced through shared memory.
 // The status words and the ticket are zeroed on the launch's stream before
 // every launch. All sums are unsigned, so wrapping is defined; row offsets
@@ -40,7 +41,7 @@
 // the card). Each of SHIFT_THREADS threads holds SHIFT_TILE / SHIFT_THREADS
 // lanes, so it has that many loads in flight, where one lane a thread
 // (1024 threads a tile) would keep only one.
-#include "common.cuh"
+#include "lookback.cuh"
 
 namespace {
 
@@ -51,49 +52,10 @@ constexpr int SCAN_WARPS = SCAN_THREADS / 32;
 constexpr int SHIFT_TILE = 1024;
 constexpr int SHIFT_THREADS = 256;
 constexpr int SHIFT_LANES = SHIFT_TILE / SHIFT_THREADS;  // lanes a thread
-constexpr unsigned FULL = 0xffffffffu;
-// status word: flag in the high 32 bits, value in the low 32
-constexpr unsigned long long FLAG_AGGREGATE = 1ull << 32;
-constexpr unsigned long long FLAG_PREFIX = 2ull << 32;
+constexpr unsigned FULL = tj::FULL_MASK;
 
 // the shared-memory slot of row e of a tile: one pad word every 32 rows
 __device__ __forceinline__ int slot(int e) { return e + (e >> 5); }
-
-__device__ __forceinline__ unsigned long long load_status(
-    const unsigned long long* p) {
-  return *reinterpret_cast<const volatile unsigned long long*>(p);
-}
-
-__device__ __forceinline__ void publish(unsigned long long* p,
-                                        unsigned long long flag,
-                                        uint32_t value) {
-  *reinterpret_cast<volatile unsigned long long*>(p) = flag | value;
-  __threadfence();
-}
-
-// Exclusive prefix of `tile` (>= 1) from its predecessors' status words, by
-// warp 0 (every lane returns it).
-__device__ uint32_t look_back(const unsigned long long* status, int64_t tile,
-                              int lane) {
-  uint32_t exclusive = 0;
-  for (int64_t last = tile - 1;; last -= 32) {
-    const int64_t j = last - lane;
-    unsigned long long word = FLAG_PREFIX;  // before tile 0: prefix 0
-    if (j >= 0) {
-      do {
-        word = load_status(status + j);
-      } while ((word >> 32) == 0);
-    }
-    const unsigned prefix_lanes = __ballot_sync(FULL, (word >> 32) == 2);
-    uint32_t value = (uint32_t)word;
-    if (prefix_lanes != 0) {
-      // lanes up to the nearest predecessor that holds its prefix
-      if (lane > __ffs(prefix_lanes) - 1) value = 0;
-      return exclusive + __reduce_add_sync(FULL, value);
-    }
-    exclusive += __reduce_add_sync(FULL, value);
-  }
-}
 
 __global__ void __launch_bounds__(SCAN_THREADS)
 carry_scan_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ y,
@@ -145,12 +107,13 @@ carry_scan_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ y,
     const uint32_t aggregate = __shfl_sync(FULL, w_incl, SCAN_WARPS - 1);
     uint32_t exclusive = 0;
     if (tile == 0) {
-      if (lane == 0) publish(status, FLAG_PREFIX, aggregate);
+      if (lane == 0) tj::publish(status, tj::FLAG_PREFIX, aggregate);
     } else {
-      if (lane == 0) publish(status + tile, FLAG_AGGREGATE, aggregate);
-      exclusive = look_back(status, tile, lane);
       if (lane == 0)
-        publish(status + tile, FLAG_PREFIX, exclusive + aggregate);
+        tj::publish(status + tile, tj::FLAG_AGGREGATE, aggregate);
+      exclusive = tj::look_back<tj::AddOp>(status, tile, lane);
+      if (lane == 0)
+        tj::publish(status + tile, tj::FLAG_PREFIX, exclusive + aggregate);
     }
     if (lane == 0) tile_prefix = exclusive;
   }
