@@ -54,7 +54,19 @@ Phases, one line each (details on stderr):
               100M slots, and fill_forward at steps 16K, 32K and 64K on
               probe_fill's marker column (~1e9 slots); then the four
               programs at full size, each kernel's launch counter above 0
-              for its program's run.
+              for its program's run;
+ 10. costs    the cost-probe kernels against their plain versions at their
+              programs' full sizes, bitwise and timed: op_chain, every kind
+              at R = 16, 64, 256 and 512 (64 ops, 512 repetitions), the row
+              kinds again at 5 ops where 64 are the identity, a folding
+              guard (128 ops against 64, and 512 repetitions against 256,
+              must take >= 1.5x the time), and at R = 256 roll_sub, the
+              kernels line's entry, the plain version over all 512
+              repetitions and torch.roll by the composed shift; select_chain on 2^28 rows, every R and op count of
+              the program; flat_roll on 2^28 rows at rolls 1, 4, 10 and 20,
+              and at shifts around the tile, negative and i32-large; then
+              the three programs at full size, each kernel's launch counter
+              above 0 for its program's run.
 Then one JSON line of per-kernel results (times, launches, the bound from
 this run's shapes, the library call's time where one computes the same
 function), the wall time, and last the line
@@ -80,14 +92,17 @@ from tpujoin_torch import bench, merge_join, oracle
 from tpujoin_torch.core import datagen
 from tpujoin_torch.kernels import (_build, carry_scan, compact, expand,
                                    expand_fill, expand_groups, expand_runs,
-                                   fill_phases, forward_fill, merge_count,
-                                   merge_sort, runs_phases, shift_loop,
+                                   fill_phases, flat_roll, forward_fill,
+                                   merge_count, merge_sort, op_chain,
+                                   runs_phases, select_chain, shift_loop,
                                    slab_count, smem_gather, stream)
 from tpujoin_torch.ops import aggregate as agg
 from tpujoin_torch.ops import merge_join as mj
 from tpujoin_torch.ops.hash_join import build
 from tpujoin_torch.probes import (bench_mat2, count_variants, fill_variants,
-                                  primitives, probe_fill, profile_expand_runs)
+                                  primitives, probe_fill, probe_flatroll,
+                                  probe_opcost, profile_expand_runs,
+                                  roll_cost)
 from tpujoin_torch.utils.hw import hbm_peak_gbps
 from tpujoin_torch.utils.shapes import round_up
 
@@ -189,12 +204,17 @@ def hbm_bytes_per_s() -> float:
     return gbps * 1e9
 
 
-def bound(results: dict, name: str, nbytes: float, ops: float) -> None:
+def bound(results: dict, name: str, nbytes: float, ops: float,
+          sms: int | None = None) -> None:
     """Record the least time the card could take for ``name``'s work: the
     larger of its bytes (each input read once, each output written once)
-    over the HBM rate and its operations over the op rate."""
+    over the HBM rate and its operations over the op rate, that of ``sms``
+    SMs where the kernel runs on so few by design, else the card's."""
+    rate = OPS_PER_S
+    if sms is not None:
+        rate *= sms / torch.cuda.get_device_properties(0).multi_processor_count
     by_bytes = nbytes / hbm_bytes_per_s() * 1e3
-    by_ops = ops / OPS_PER_S * 1e3
+    by_ops = ops / rate * 1e3
     results[name].update(
         bound_ms=max(by_bytes, by_ops),
         bound_by="bytes" if by_bytes >= by_ops else "operations")
@@ -436,7 +456,10 @@ COUNTERS = {"block_sort": (merge_sort, "LAUNCHES"),
             "merge_count_v": (slab_count, "LAUNCHES"),
             "expand_fill_v": (fill_phases, "LAUNCHES"),
             "run_variant": (runs_phases, "LAUNCHES"),
-            "fill_forward": (forward_fill, "LAUNCHES")}
+            "fill_forward": (forward_fill, "LAUNCHES"),
+            "op_chain": (op_chain, "LAUNCHES"),
+            "select_chain": (select_chain, "LAUNCHES"),
+            "flat_roll": (flat_roll, "LAUNCHES")}
 
 
 def zero_counters() -> None:
@@ -784,6 +807,136 @@ def variants_phase(dev, results: dict) -> None:
         torch.cuda.empty_cache()
 
 
+FOLD_RATIO = 1.5             # least time ratio when ops or steps double
+CHAIN_ENTRY = ("roll_sub", 256)
+
+
+def chain_entry(dev, results: dict) -> None:
+    """op_chain's kernels-line entry beside what it is compared with: the
+    plain version timed over the kernel's ``steps`` repetitions, the one
+    PyTorch call that gives the same tile (torch.roll by the composed
+    shift, which skips the chain the probe times), and the op bound at the
+    rate of the one SM the chain runs on."""
+    kind, rows = CHAIN_ENTRY
+    sh, ops, steps = roll_cost.SH, op_chain.OPS, op_chain.STEPS
+    x = full_range(rows * op_chain.LANES, 8 + rows, dev).view(rows, -1)
+
+    def library():
+        return roll_cost.closed_form(x, sh, kind, ops)
+
+    if max_abs_err((op_chain.op_chain(x, sh, kind),), (library(),)):
+        raise AssertionError(f"op_chain {kind} R={rows}: not torch.roll by "
+                             f"the composed shift")
+    r = results["op_chain"]
+    r["plain_ms"] = cuda_ms(
+        lambda: [op_chain.op_chain_plain(x, sh, kind) for _ in range(steps)],
+        f"op_chain plain x{steps}")
+    r["library_ms"] = cuda_ms(library, "torch.roll by the composed shift")
+    bound(results, "op_chain", 8 * rows * op_chain.LANES,
+          ops * steps * rows * op_chain.LANES, sms=1)
+    say("costs", f"op_chain {kind} R={rows}: plain over {steps} repetitions "
+        f"{r['plain_ms']:.3f} ms; torch.roll by the composed shift "
+        f"{r['library_ms']:.3f} ms; bound at one SM {r['bound_ms']:.3f} ms")
+
+
+def costs_phase(dev, results: dict) -> None:
+    """The three cost-probe kernels against their plain versions at their
+    programs' full sizes (exact), timed, with op_chain's folding guard;
+    then the three programs at full size, each kernel launched in its
+    program's run."""
+    sh, ops, steps = roll_cost.SH, op_chain.OPS, op_chain.STEPS
+    for rows in roll_cost.PROGRAM_ROWS:
+        x = full_range(rows * op_chain.LANES, 8 + rows, dev).view(rows, -1)
+        for kind in op_chain.KINDS:
+            got = check_kernel(
+                f"op_chain[{kind}, R={rows}]",
+                lambda k=kind: (op_chain.op_chain(x, sh, k),),
+                lambda k=kind: (op_chain.op_chain_plain(x, sh, k),), None,
+                "costs")
+            if (kind, rows) == CHAIN_ENTRY:
+                results["op_chain"].update(got)
+            line = (f"op_chain {kind} R={rows}: "
+                    f"{got['ms'] * 1e6 / (ops * steps):.1f} ns/op")
+            if kind in op_chain.ROW_KINDS and rows <= 64:
+                if max_abs_err((op_chain.op_chain(x, sh, kind, 5),),
+                               (op_chain.op_chain_plain(x, sh, kind, 5),)):
+                    raise AssertionError(f"op_chain {kind} R={rows}: "
+                                         f"differs at 5 ops")
+                line += "; exact at 5 ops"
+            if rows in (16, 512):
+                # 128 ops against 64, not 64 against 32: a repetition's
+                # fixed cost weighs less beside the longer chain
+                t_ops = cuda_ms(lambda k=kind: op_chain.op_chain(
+                    x, sh, k, 2 * ops), f"op_chain {kind} twice the ops")
+                t_steps = cuda_ms(lambda k=kind: op_chain.op_chain(
+                    x, sh, k, ops, steps // 2), f"op_chain {kind} half steps")
+                r_ops, r_steps = t_ops / got["ms"], got["ms"] / t_steps
+                line += (f"; x{r_ops:.3f} for twice the ops, "
+                         f"x{r_steps:.3f} for twice the repetitions")
+                if r_ops < FOLD_RATIO or r_steps < FOLD_RATIO:
+                    raise AssertionError(
+                        f"op_chain {kind} R={rows}: folded or hoisted, "
+                        f"x{r_ops:.3f} for twice the ops and x{r_steps:.3f} "
+                        f"for twice the repetitions (< {FOLD_RATIO})")
+            say("costs", line)
+    chain_entry(dev, results)
+
+    n = probe_opcost.N
+    x = full_range(n, 9, dev)
+    for rows in probe_opcost.BLOCK_ROWS:
+        for ops in probe_opcost.OPS:
+            shifts = torch.arange(1, ops + 1, dtype=torch.int32,
+                                  device=dev) * probe_opcost.SHIFT
+            got = check_kernel(
+                f"select_chain[R={rows}, ops={ops}]",
+                lambda s=shifts, o=ops, r=rows: (
+                    select_chain.select_chain(x, s, o, r),),
+                lambda s=shifts, o=ops, r=rows: (
+                    select_chain.select_chain_plain(x, s, o, r),), None,
+                "costs")
+            if (rows, ops) == (128, 33):
+                results["select_chain"].update(got)
+    bound(results, "select_chain", 8 * n, 3 * 33 * n)
+
+    n = probe_flatroll.N
+    for rolls in probe_flatroll.ROLLS:
+        shifts = torch.arange(1, rolls + 1, dtype=torch.int32,
+                              device=dev) * probe_flatroll.SHIFT
+        got = check_kernel(
+            f"flat_roll[rolls={rolls}]",
+            lambda s=shifts, r=rolls: (flat_roll.flat_roll(x, s, r),),
+            lambda s=shifts, r=rolls: (flat_roll.flat_roll_plain(x, s, r),),
+            None, "costs")
+        if rolls == 20:
+            results["flat_roll"].update(got)
+    bound(results, "flat_roll", 8 * n, 20 * n)
+    edge = torch.tensor([0, 1, 127, 128, 1023, 1024, 1500, -1, -130, IMAX],
+                        dtype=torch.int32, device=dev)
+    small = x[:1 << 20]
+    for ks in [edge[k:k + 1] for k in range(edge.shape[0])] + [edge]:
+        if max_abs_err((flat_roll.flat_roll(small, ks, ks.shape[0]),),
+                       (flat_roll.flat_roll_plain(small, ks, ks.shape[0]),)):
+            raise AssertionError(f"flat_roll differs at shifts {ks.tolist()}")
+    say("costs", f"flat_roll exact at shifts {edge.tolist()}, each and "
+        f"summed")
+    del x, small
+    torch.cuda.empty_cache()
+
+    for name, mod, kernel in (
+            ("roll_cost", roll_cost, "op_chain"),
+            ("probe_opcost", probe_opcost, "select_chain"),
+            ("probe_flatroll", probe_flatroll, "flat_roll")):
+        t0 = time.perf_counter()
+        rc, launches = _counted(lambda mod=mod: mod.main([]), (kernel,), name)
+        if rc != 0:
+            raise AssertionError(f"{name}: exit {rc}")
+        results[kernel]["launches"] = launches[kernel]
+        say("costs", f"{name} at full size: "
+            f"{time.perf_counter() - t0:.3f} s; {launches[kernel]} "
+            f"{kernel} launches")
+        torch.cuda.empty_cache()
+
+
 def check_dense_slice(out: dict) -> None:
     """The dense slice materialized every pair on fill and checked each."""
     if out.get("pair_kernel") != "fill":
@@ -856,6 +1009,12 @@ def main(argv=None) -> int:
                         "replaces": "exp/profile_expand_runs.py:126"},
         "fill_forward": {"source": src + "probe_fill.cu",
                          "replaces": "exp/probe_fill.py:64"},
+        "op_chain": {"source": src + "roll_cost.cu",
+                     "replaces": "exp/roll_cost.py:53"},
+        "select_chain": {"source": src + "probe_opcost.cu",
+                         "replaces": "exp/probe_opcost.py:39"},
+        "flat_roll": {"source": src + "probe_flatroll.cu",
+                      "replaces": "exp/probe_flatroll.py:61"},
     }
     low = bench.scaled_config("ref_low_selectivity", args.scale)
     high = bench.scaled_config("ref_high_selectivity")
@@ -874,6 +1033,7 @@ def main(argv=None) -> int:
         lambda: ops_phase(dev, results),
         lambda: probes_phase(dev, results),
         lambda: variants_phase(dev, results),
+        lambda: costs_phase(dev, results),
     )
     for phase in phases:
         t0 = time.perf_counter()

@@ -17,8 +17,9 @@ from tpujoin_torch.ops import aggregate as agg
 from tpujoin_torch.ops import filter as flt
 from tpujoin_torch.kernels import (carry_scan, compact, expand, expand_fill,
                                    expand_groups, expand_runs, fill_phases,
-                                   forward_fill, merge_count, merge_sort,
-                                   runs_phases, shift_loop, slab_count,
+                                   flat_roll, forward_fill, merge_count,
+                                   merge_sort, op_chain, runs_phases,
+                                   select_chain, shift_loop, slab_count,
                                    smem_gather, stream)
 from tpujoin_torch.probes import fill_variants, profile_expand_runs
 
@@ -63,9 +64,19 @@ def test_sort_kernels(n, dist):
 
 @pytest.mark.parametrize("n,m", [(4096, 4096), (0, 300), (1, 1), (1024, 1024),
                                  (5000, 257), (100_003, 1_000_001)])
-@pytest.mark.parametrize("spread", [2, 0.5])
+@pytest.mark.parametrize("spread", [2, 0.5, "top"])
 def test_merge_count_kernel(n, m, spread):
+    """Keys in [1, spread * n) against [-10, hi + 1000), or ("top") keys at
+    the top of the i32 range on both sides, INT32_MAX included."""
     rng = np.random.default_rng(n + m)
+    if spread == "top":
+        top = np.array([IMAX - 3, IMAX - 1, IMAX], np.int32)
+        b = np.sort(rng.choice(top, n)).astype(np.int32)
+        p = np.sort(rng.choice(np.append(top, IMAX - 2), m)).astype(np.int32)
+        b, p = torch.from_numpy(b).cuda(), torch.from_numpy(p).cuda()
+        _equal(merge_count.merge_count(b, p),
+               merge_count.merge_count_plain(b, p))
+        return
     hi = max(int(spread * n), 2)
     b = np.sort(rng.integers(1, hi, n)).astype(np.int32)
     p = np.sort(rng.integers(-10, hi + 1000, m)).astype(np.int32)
@@ -186,6 +197,31 @@ def test_merge_join_on_card_matches_cpu(chunk):
 
     np.testing.assert_array_equal(pairs(r, s), pairs(cr, cs))
     assert oracle.check_join(bk, pk, r, s) == 1
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 777])
+def test_chunked_merge_join_on_card_with_top_keys(chunk):
+    """Build keys 0x7FFFFFFE and INT32_MAX join only real probe rows,
+    chunked, on the card as on the CPU."""
+    rng = np.random.default_rng(chunk)
+    top = np.array([0x7FFFFFFE, IMAX, 5, 9], np.int32)
+    bk = rng.choice(top, 3000)
+    pk = rng.choice(np.append(top, 7), 2000)
+    kw = {"probe_chunk_rows": chunk, "result_pad_multiple": 1024}
+    r, s = tpujoin_torch.merge_join(torch.from_numpy(bk).cuda(),
+                                    torch.from_numpy(pk).cuda(), **kw)
+    cr, cs = tpujoin_torch.merge_join(bk, pk, device="cpu", **kw)
+
+    def pairs(a, b):
+        return np.sort(a.astype(np.int64) << 32 | b.astype(np.int64))
+
+    np.testing.assert_array_equal(pairs(r, s), pairs(cr, cs))
+    assert (s < len(pk)).all()
+    assert oracle.check_join(bk, pk, r, s) == 1
+    r, s = tpujoin_torch.merge_join(np.array([0x7FFFFFFE, 5], np.int32),
+                                    np.array([5, 2, 3], np.int32),
+                                    probe_chunk_rows=2)
+    assert (r.tolist(), s.tolist()) == ([1], [0])
 
 
 def test_wrappers_count_launches_and_refuse_bad_input():
@@ -545,3 +581,76 @@ def test_variant_wrappers_refuse_bad_input():
     with pytest.raises(ValueError):
         forward_fill.fill_forward(torch.zeros(64, 128, dtype=torch.int32,
                                               device="cuda"), 16384)
+
+
+@pytest.mark.parametrize("kind", op_chain.KINDS)
+@pytest.mark.parametrize("rows", op_chain.ROWS)
+@pytest.mark.parametrize("ops,steps", [(64, 3), (5, 2), (0, 1)])
+def test_op_chain_kernel(kind, rows, ops, steps):
+    """Every R, the cluster of two at R = 512 included, on full-range
+    tiles: 64 ops (the row kinds move only at R >= 256), 5 ops (they move
+    at every R), and none; shifts 5, a negative one and INT32_MAX."""
+    x = _full_range(rows * op_chain.LANES, rows + ops).view(rows, -1)
+    before = op_chain.LAUNCHES
+    for sh in (5, -3, IMAX):
+        _equal((op_chain.op_chain(x, sh, kind, ops, steps),),
+               (op_chain.op_chain_plain(x, sh, kind, ops, steps),))
+    assert op_chain.LAUNCHES == before + 3
+
+
+@pytest.mark.parametrize("rows", [1, 8, 128])
+@pytest.mark.parametrize("ops", [0, 1, 33])
+@pytest.mark.parametrize("blocks", [1, 1000])
+def test_select_chain_kernel(rows, ops, blocks):
+    x = _full_range(blocks * rows * select_chain.LANES, rows + ops)
+    shifts = _full_range(max(ops, 1), ops)
+    shifts[1::2] = torch.arange(1, shifts[1::2].numel() + 1,
+                                dtype=torch.int32, device="cuda") * 37
+    before = select_chain.LAUNCHES
+    _equal((select_chain.select_chain(x, shifts, ops, rows),),
+           (select_chain.select_chain_plain(x, shifts, ops, rows),))
+    assert select_chain.LAUNCHES == before + 1
+
+
+SHIFT_SETS = {"program": [37, 74, 111, 148, 185, 222],
+              "negative": [-1, -130, -1024, -1500, IMIN],
+              "large": [1024, 1500, IMAX, 1023, 0]}
+
+
+@pytest.mark.parametrize("shifts", list(SHIFT_SETS))
+@pytest.mark.parametrize("rolls", [0, 1, 5])
+@pytest.mark.parametrize("steps", [1, 1000])
+def test_flat_roll_kernel(shifts, rolls, steps):
+    x = _full_range(steps * flat_roll.STEP, steps + rolls)
+    ks = torch.tensor(SHIFT_SETS[shifts], dtype=torch.int32, device="cuda")
+    before = flat_roll.LAUNCHES
+    got = flat_roll.flat_roll(x, ks, rolls)
+    _equal((got,), (flat_roll.flat_roll_plain(x, ks, rolls),))
+    assert flat_roll.LAUNCHES == before + 1
+    if rolls == 1:
+        want = torch.roll(x.view(-1, flat_roll.TILE), SHIFT_SETS[shifts][0] %
+                          flat_roll.TILE, 1).reshape(-1)
+        _equal((got,), (want,))
+
+
+def test_cost_wrappers_refuse_bad_input():
+    x = torch.zeros(2 * flat_roll.STEP, dtype=torch.int32, device="cuda")
+    s = torch.arange(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        flat_roll.flat_roll(x[:flat_roll.STEP + flat_roll.TILE], s, 1)
+    with pytest.raises(ValueError):
+        flat_roll.flat_roll(x, s.cpu(), 1)
+    with pytest.raises(ValueError):
+        select_chain.select_chain(x[:-128], s, 1, 8)
+    with pytest.raises(ValueError):
+        select_chain.select_chain(x[1:1 + 1024], s, 1, 8)   # misaligned
+    with pytest.raises(ValueError):
+        select_chain.select_chain(x, s, 5, 8)
+    tile = x[:16 * op_chain.LANES].view(16, -1)
+    with pytest.raises(ValueError):
+        op_chain.op_chain(x[:24 * op_chain.LANES].view(24, -1), 5, "select")
+    with pytest.raises(ValueError):     # not contiguous
+        op_chain.op_chain(x[:32 * op_chain.LANES].view(32, -1)[::2], 5,
+                          "select")
+    with pytest.raises(ValueError):
+        op_chain.op_chain(tile, 5, "roll_diag")

@@ -137,3 +137,29 @@ def test_merge_join_empty_and_disjoint():
                                     np.arange(200, 300, dtype=np.int32),
                                     device="cpu")
     assert r.shape == s.shape == (0,)
+
+
+@pytest.mark.parametrize("chunk", [None, 1, 2])
+def test_chunked_merge_join_keeps_to_real_probe_rows(chunk):
+    """A build key 0x7FFFFFFE (and INT32_MAX) joins only real probe rows,
+    chunked or not: the last chunk runs at its own length. The JAX
+    merge_join pads its last chunk with 0x7FFFFFFE, so on build
+    [0x7FFFFFFE, 5], probe [5, 2, 3] with probe_chunk_rows=2 it returns
+    {(1, 0), (0, 3)}: the pad row, as probe row 3, joins build row 0."""
+    bk = np.array([0x7FFFFFFE, 5], np.int32)
+    pk = np.array([5, 2, 3], np.int32)
+    r, s = tpujoin_torch.merge_join(bk, pk, device="cpu",
+                                    probe_chunk_rows=chunk)
+    assert set(zip(r.tolist(), s.tolist())) == {(1, 0)}
+    assert oracle.check_join(bk, pk, r, s) == 1
+
+    rng = np.random.default_rng(9)
+    bk = rng.choice(np.array([0x7FFFFFFE, 0x7FFFFFFF, 1, 5], np.int32), 40)
+    pk = rng.choice(np.array([0x7FFFFFFE, 0x7FFFFFFF, 2, 5], np.int32), 23)
+    r, s = tpujoin_torch.merge_join(bk, pk, device="cpu",
+                                    probe_chunk_rows=chunk)
+    want = [(i, j) for i in range(len(bk)) for j in range(len(pk))
+            if bk[i] == pk[j]]
+    np.testing.assert_array_equal(_pairs(r, s),
+                                  _pairs(*np.array(want, np.int32).T))
+    assert oracle.check_join(bk, pk, r, s) == 1

@@ -70,3 +70,18 @@ def test_lo_is_n_above_every_build_key():
     p = np.full(1024, 2, np.int32)
     lo, cnt = mc.merge_count(torch.from_numpy(b), torch.from_numpy(p))
     assert (lo.numpy() == 1024).all() and not cnt.numpy().any()
+
+
+def test_probe_key_int32_max_counts_only_real_keys():
+    """A probe key INT32_MAX counts the build keys equal to it and no
+    more. The JAX kernel pads the build keys with INT32_MAX, so on sorted
+    build [3, IMAX, IMAX], probe [3, IMAX] it gives lo [0, 1] and cnt
+    [1, 1023]: the real pair and every pad of its 1024-key tile."""
+    imax = np.iinfo(np.int32).max
+    b = np.array([3, imax, imax], np.int32)
+    p = np.array([3, imax], np.int32)
+    lo, cnt = mc.merge_count(torch.from_numpy(b), torch.from_numpy(p))
+    np.testing.assert_array_equal(lo.numpy(), np.searchsorted(b, p, "left"))
+    np.testing.assert_array_equal(
+        cnt.numpy(), np.searchsorted(b, p, "right") - np.searchsorted(b, p))
+    assert cnt.tolist() == [1, 2]

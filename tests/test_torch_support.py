@@ -18,7 +18,9 @@ from tpujoin.utils import shapes as jax_shapes
 from tpujoin_torch import bench, oracle, profile
 from tpujoin_torch.core import config, datagen
 from tpujoin_torch.probes import (bench_mat2, count_variants, fill_variants,
-                                  primitives, probe_fill, profile_expand_runs)
+                                  primitives, probe_fill, probe_flatroll,
+                                  probe_opcost, profile_expand_runs,
+                                  roll_cost)
 from tpujoin_torch.utils import hw, shapes, timing
 
 REPO = Path(__file__).resolve().parent.parent
@@ -129,10 +131,12 @@ def test_port_imports_without_jax():
             "tpujoin_torch.profile\n"
             "from tpujoin_torch.kernels import _build, carry_scan, compact, "
             "expand, expand_fill, expand_groups, expand_runs, fill_phases, "
-            "forward_fill, merge_count, merge_sort, runs_phases, shift_loop, "
-            "slab_count, smem_gather, stream\n"
+            "flat_roll, forward_fill, merge_count, merge_sort, op_chain, "
+            "runs_phases, select_chain, shift_loop, slab_count, smem_gather, "
+            "stream\n"
             "from tpujoin_torch.probes import bench_mat2, count_variants, "
-            "fill_variants, primitives, probe_fill, profile_expand_runs\n"
+            "fill_variants, primitives, probe_fill, probe_flatroll, "
+            "probe_opcost, profile_expand_runs, roll_cost\n"
             "from tpujoin_torch.ops import aggregate, filter, "
             "nested_loop_join, radix, sort\n"
             "from tpujoin_torch.core import table\n"
@@ -172,6 +176,9 @@ def test_gpu_entry_points_refuse_without_cuda(tmp_path):
     assert fill_variants.main(["--groups", "2"]) == 1
     assert profile_expand_runs.main(["--runs", "300"]) == 1
     assert probe_fill.main(["--rows", "1000"]) == 1
+    assert roll_cost.main(["--rows", "16"]) == 1
+    assert probe_opcost.main(["--n", "16384"]) == 1
+    assert probe_flatroll.main(["--n", "16384"]) == 1
 
 
 _KEYS = np.arange(1, 65, dtype=np.int32)

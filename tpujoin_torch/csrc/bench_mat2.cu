@@ -136,11 +136,7 @@ shift_loop_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
                   int64_t rolls) {
   __shared__ int32_t tile[SHIFT_TILE];
   const int64_t base = (int64_t)blockIdx.x * SHIFT_TILE;
-#pragma unroll
-  for (int k = 0; k < SHIFT_LANES; ++k) {
-    const int l = k * SHIFT_THREADS + threadIdx.x;
-    tile[l] = __ldcs(x + base + l);
-  }
+  tj::stage_tile<SHIFT_THREADS, SHIFT_TILE>(x, base, tile);
   __syncthreads();
   int32_t acc[SHIFT_LANES] = {};
   for (int64_t d = 0; d < rolls; ++d) {

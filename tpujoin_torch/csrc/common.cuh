@@ -30,4 +30,18 @@ __device__ __forceinline__ int64_t upper_bound(const int32_t* a, int64_t lo,
   return lo;
 }
 
+// Copies the TILE words of x from `base` into the shared `tile`, coalesced:
+// each of THREADS threads loads TILE / THREADS words, neighbouring threads
+// neighbouring words, with streaming loads (each word is read once).
+template <int THREADS, int TILE>
+__device__ __forceinline__ void stage_tile(const int32_t* __restrict__ x,
+                                           int64_t base, int32_t* tile) {
+  static_assert(TILE % THREADS == 0, "a tile is whole loads");
+#pragma unroll
+  for (int k = 0; k < TILE / THREADS; ++k) {
+    const int l = k * THREADS + threadIdx.x;
+    tile[l] = __ldcs(x + base + l);
+  }
+}
+
 }  // namespace tj

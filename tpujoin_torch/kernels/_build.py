@@ -49,6 +49,9 @@ _SIGNATURES = {
     "tj_fill_forward": (P, P, I64, I64, P, I64, P),
     "tj_expand_fill_v": (P, P, I64, P, P, P, I64, P, I64, I64, P, P, I64, I64,
                          I64, P),
+    "tj_op_chain": (P, P, I64, I64, I64, I64, I64, P),
+    "tj_select_chain": (P, P, I64, P, I64, I64, P),
+    "tj_flat_roll": (P, P, I64, P, I64, P),
 }
 
 _lib: ctypes.CDLL | None = None

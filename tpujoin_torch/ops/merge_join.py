@@ -32,9 +32,6 @@ from tpujoin_torch.ops.hash_join import HashJoinTable, _i32_tensor, build
 from tpujoin_torch.utils.device import resolve_device
 from tpujoin_torch.utils.shapes import round_up
 
-# pads the last probe chunk: sorts to the tail and matches nothing in the
-# benchmark key domain [1, 1e9]
-CHUNK_PAD_KEY = 0x7FFFFFFE
 INT32_MAX = 0x7FFFFFFF
 
 # Average matches per probe row from which plan_materialize tries the runs
@@ -281,7 +278,7 @@ def merge_join(build_keys, probe_keys, *,
     tensors; ``device`` defaults to the tensors' device, else CUDA (there
     is no silent CPU fallback: pass ``device="cpu"`` for the plain
     versions). The probe side runs in chunks of ``probe_chunk_rows`` (all
-    at once when None), the last chunk padded with CHUNK_PAD_KEY."""
+    at once when None), the last one at its own length."""
     dev = resolve_device(build_keys, probe_keys, device=device)
     bk = torch.as_tensor(build_keys, dtype=torch.int32, device=dev)
     pk = torch.as_tensor(probe_keys, dtype=torch.int32, device=dev)
@@ -291,12 +288,7 @@ def merge_join(build_keys, probe_keys, *,
     ht = build(bk)
     out_r, out_s = [], []
     for start in range(0, m, chunk) if m else []:
-        end = min(start + chunk, m)
-        part = pk[start:end]
-        if end - start < chunk:
-            part = torch.cat([part, part.new_full((chunk - (end - start),),
-                                                  CHUNK_PAD_KEY)])
-        state, total, nonzero = probe_count(ht, part)
+        state, total, nonzero = probe_count(ht, pk[start:start + chunk])
         total, nonzero = int(total), int(nonzero)
         if total == 0:
             continue
