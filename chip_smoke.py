@@ -66,7 +66,19 @@ Phases, one line each (details on stderr):
               the program; flat_roll on 2^28 rows at rolls 1, 4, 10 and 20,
               and at shifts around the tile, negative and i32-large; then
               the three programs at full size, each kernel's launch counter
-              above 0 for its program's run.
+              above 0 for its program's run;
+ 11. mosaic   the ten capability-probe kernels (roll, smem_dyn, vmem_dyn,
+              fori, smem_block, hbm_to_smem, dyn_vec_load, sublane_roll,
+              row_dma_2d, flat_rotate; two of them TMA copies) against
+              their plain versions at their programs' inputs, bitwise and
+              timed, with the one PyTorch call that computes the same
+              function where there is one, then at each program's EDGES
+              scalars on full-range data (shifts 0, -1, 1023, 1024 and the
+              i32 ends; offsets at both ends of a copy's precondition and
+              past them); the host's time a call of the two copies beside
+              a kernel without one; then the three programs
+              (tpujoin_torch.probes.probe_mosaic, 2 and 3) at full size,
+              each kernel's launch counter above 0 for its program's run.
 Then one JSON line of per-kernel results (times, launches, the bound from
 this run's shapes, the library call's time where one computes the same
 function), the wall time, and last the line
@@ -93,14 +105,16 @@ from tpujoin_torch.core import datagen
 from tpujoin_torch.kernels import (_build, carry_scan, compact, expand,
                                    expand_fill, expand_groups, expand_runs,
                                    fill_phases, flat_roll, forward_fill,
-                                   merge_count, merge_sort, op_chain,
-                                   runs_phases, select_chain, shift_loop,
-                                   slab_count, smem_gather, stream)
+                                   merge_count, merge_sort, mosaic, mosaic2,
+                                   mosaic3, op_chain, runs_phases,
+                                   select_chain, shift_loop, slab_count,
+                                   smem_gather, stream)
 from tpujoin_torch.ops import aggregate as agg
 from tpujoin_torch.ops import merge_join as mj
 from tpujoin_torch.ops.hash_join import build
 from tpujoin_torch.probes import (bench_mat2, count_variants, fill_variants,
                                   primitives, probe_fill, probe_flatroll,
+                                  probe_mosaic, probe_mosaic2, probe_mosaic3,
                                   probe_opcost, profile_expand_runs,
                                   roll_cost)
 from tpujoin_torch.utils.hw import hbm_peak_gbps
@@ -459,7 +473,17 @@ COUNTERS = {"block_sort": (merge_sort, "LAUNCHES"),
             "fill_forward": (forward_fill, "LAUNCHES"),
             "op_chain": (op_chain, "LAUNCHES"),
             "select_chain": (select_chain, "LAUNCHES"),
-            "flat_roll": (flat_roll, "LAUNCHES")}
+            "flat_roll": (flat_roll, "LAUNCHES"),
+            "roll": (mosaic, "ROLL_LAUNCHES"),
+            "smem_dyn": (mosaic, "SMEM_DYN_LAUNCHES"),
+            "vmem_dyn": (mosaic, "VMEM_DYN_LAUNCHES"),
+            "fori": (mosaic, "FORI_LAUNCHES"),
+            "smem_block": (mosaic, "SMEM_BLOCK_LAUNCHES"),
+            "hbm_to_smem": (mosaic2, "HBM_TO_SMEM_LAUNCHES"),
+            "dyn_vec_load": (mosaic2, "DYN_VEC_LOAD_LAUNCHES"),
+            "sublane_roll": (mosaic3, "SUBLANE_ROLL_LAUNCHES"),
+            "row_dma_2d": (mosaic3, "ROW_DMA_2D_LAUNCHES"),
+            "flat_rotate": (mosaic3, "FLAT_ROTATE_LAUNCHES")}
 
 
 def zero_counters() -> None:
@@ -937,6 +961,117 @@ def costs_phase(dev, results: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# capability-probe kernel -> (its module, its program, the words of data it
+# reads at its program's input beside its scalars: one where it reads one)
+MOSAIC = {"roll": (mosaic, probe_mosaic, mosaic.ROW),
+          "smem_dyn": (mosaic, probe_mosaic, 0),
+          "vmem_dyn": (mosaic, probe_mosaic, 1),
+          "fori": (mosaic, probe_mosaic, mosaic.LANES),
+          "smem_block": (mosaic, probe_mosaic, 1),
+          "hbm_to_smem": (mosaic2, probe_mosaic2, 1),
+          "dyn_vec_load": (mosaic2, probe_mosaic2, mosaic2.DV_OUT),
+          "sublane_roll": (mosaic3, probe_mosaic3, 32 * mosaic3.LANES),
+          "row_dma_2d": (mosaic3, probe_mosaic3, 32 * mosaic3.LANES),
+          "flat_rotate": (mosaic3, probe_mosaic3, 8 * mosaic3.LANES)}
+
+
+def mosaic_library(name: str, args: tuple):
+    """The one PyTorch call that computes ``name``'s function at its
+    program's input, and what it is, or None. A roll or a slice takes its
+    shift or start as a host int (the program's), where the kernel reads
+    it on the device; the flat rotate's torch.roll rolls the whole flat
+    tile and keeps its first 1024 words (a view)."""
+    x, s = args[0], args[-1]
+    k = int(s[0])
+    calls = {
+        "roll": (lambda: torch.roll(x, -k, 1), f"torch.roll by {-k}"),
+        "smem_dyn": (lambda: torch.index_select(
+            s, 0, s[:1].expand(mosaic.LANES)).view(1, -1),
+            "torch.index_select at s[0]"),
+        "vmem_dyn": (lambda: torch.index_select(
+            x.view(-1), 0, s.expand(mosaic.LANES)).view(1, -1),
+            "torch.index_select at s[0]"),
+        "dyn_vec_load": (lambda: torch.narrow_copy(x, 1, k, mosaic2.DV_OUT),
+                         f"torch.narrow_copy at {k}"),
+        "sublane_roll": (lambda: torch.roll(x, -k, 0), f"torch.roll by {-k}"),
+        "row_dma_2d": (lambda: torch.narrow_copy(x, 0, k, mosaic3.RD_ROWS),
+                       f"torch.narrow_copy at {k}"),
+        "flat_rotate": (lambda: torch.roll(x.view(-1), -k)[
+            :mosaic3.FR_OUT_ROWS * mosaic3.LANES].view(-1, mosaic3.LANES),
+            f"torch.roll of the flat tile by {-k}"),
+    }
+    return calls.get(name)
+
+
+def host_us(fn, reps: int = 2000) -> float:
+    """Host microseconds a call of ``fn``, over ``reps`` calls that the
+    device keeps up with (no sync between them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e6
+
+
+def mosaic_phase(dev, results: dict) -> None:
+    """The ten capability-probe kernels against their plain versions at
+    their programs' inputs (exact), timed, with the library call beside
+    those that have one (checked equal first), and at their programs' EDGES
+    scalars on full-range data; the host's cost a call of the two TMA
+    copies against a kernel without one; then the three programs, each
+    kernel launched in its program's run."""
+    for name, (mod, program, words) in MOSAIC.items():
+        fn, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+        args = program.inputs(dev)[name]
+        check_kernel(name, lambda: (fn(*args),), lambda: (plain(*args),),
+                     results, "mosaic")
+        out = fn(*args)
+        ops = 2 * int(args[-1][0]) * out.numel() if name == "fori" else 0
+        bound(results, name, 4 * (args[-1].numel() + words + out.numel()),
+              ops)
+        library = mosaic_library(name, args)
+        line = f"{name}: bound {results[name]['bound_ms']:.3e} ms"
+        if library is not None:
+            call, what = library
+            if max_abs_err((out,), (call(),)):
+                raise AssertionError(f"{name}: {what} differs")
+            results[name]["library_ms"] = cuda_ms(call, what)
+            line += (f"; {what} {results[name]['library_ms']:.3f} ms, "
+                     f"equal")
+        edges = program.EDGES[name]
+        for k, edge in enumerate(edges):
+            eargs = [full_range(t.numel(), 20 + k, dev).view(t.shape)
+                     for t in args[:-1]]
+            eargs.append(torch.tensor(edge, dtype=torch.int32, device=dev))
+            if max_abs_err((fn(*eargs),), (plain(*eargs),)):
+                raise AssertionError(f"{name} differs from plain at {edge}")
+        say("mosaic", f"{line}; exact at {len(edges)} edge inputs")
+
+    costs = {name: host_us(lambda name=name, mod=MOSAIC[name][0], program=(
+        MOSAIC[name][1].inputs(dev)[name]): getattr(mod, name)(*program))
+        for name in ("row_dma_2d", "hbm_to_smem", "sublane_roll")}
+    say("mosaic", "host us a call (wrapper and launch): " + ", ".join(
+        f"{name} {us:.3f}" for name, us in costs.items()) + "; row_dma_2d "
+        "alone encodes a tensor map")
+
+    for name, mod in (("probe_mosaic", probe_mosaic),
+                      ("probe_mosaic2", probe_mosaic2),
+                      ("probe_mosaic3", probe_mosaic3)):
+        path = tuple(k for k, v in MOSAIC.items() if v[1] is mod)
+        t0 = time.perf_counter()
+        rc, launches = _counted(lambda mod=mod: mod.main([]), path, name)
+        if rc != 0:
+            raise AssertionError(f"{name}: exit {rc}")
+        for kernel in path:
+            results[kernel]["launches"] = launches[kernel]
+        say("mosaic", f"{name} at full size: {time.perf_counter() - t0:.3f}"
+            f" s; launches " + ", ".join(f"{k} {launches[k]}" for k in path))
+        torch.cuda.empty_cache()
+
+
 def check_dense_slice(out: dict) -> None:
     """The dense slice materialized every pair on fill and checked each."""
     if out.get("pair_kernel") != "fill":
@@ -1015,6 +1150,16 @@ def main(argv=None) -> int:
                          "replaces": "exp/probe_opcost.py:39"},
         "flat_roll": {"source": src + "probe_flatroll.cu",
                       "replaces": "exp/probe_flatroll.py:61"},
+        **{name: {"source": src + f"{file}.cu", "replaces": f"exp/{file}.py:"
+                  f"{line}"} for name, file, line in (
+            ("roll", "probe_mosaic", 43), ("smem_dyn", "probe_mosaic", 62),
+            ("vmem_dyn", "probe_mosaic", 80), ("fori", "probe_mosaic", 104),
+            ("smem_block", "probe_mosaic", 122),
+            ("hbm_to_smem", "probe_mosaic2", 33),
+            ("dyn_vec_load", "probe_mosaic2", 54),
+            ("sublane_roll", "probe_mosaic3", 33),
+            ("row_dma_2d", "probe_mosaic3", 55),
+            ("flat_rotate", "probe_mosaic3", 86))},
     }
     low = bench.scaled_config("ref_low_selectivity", args.scale)
     high = bench.scaled_config("ref_high_selectivity")
@@ -1034,6 +1179,7 @@ def main(argv=None) -> int:
         lambda: probes_phase(dev, results),
         lambda: variants_phase(dev, results),
         lambda: costs_phase(dev, results),
+        lambda: mosaic_phase(dev, results),
     )
     for phase in phases:
         t0 = time.perf_counter()

@@ -18,10 +18,12 @@ from tpujoin_torch.ops import filter as flt
 from tpujoin_torch.kernels import (carry_scan, compact, expand, expand_fill,
                                    expand_groups, expand_runs, fill_phases,
                                    flat_roll, forward_fill, merge_count,
-                                   merge_sort, op_chain, runs_phases,
-                                   select_chain, shift_loop, slab_count,
-                                   smem_gather, stream)
-from tpujoin_torch.probes import fill_variants, profile_expand_runs
+                                   merge_sort, mosaic, mosaic2, mosaic3,
+                                   op_chain, runs_phases, select_chain,
+                                   shift_loop, slab_count, smem_gather,
+                                   stream)
+from tpujoin_torch.probes import (fill_variants, probe_mosaic, probe_mosaic2,
+                                  probe_mosaic3, profile_expand_runs)
 
 pytestmark = pytest.mark.skipif(
     "not torch.cuda.is_available()",
@@ -654,3 +656,49 @@ def test_cost_wrappers_refuse_bad_input():
                           "select")
     with pytest.raises(ValueError):
         op_chain.op_chain(tile, 5, "roll_diag")
+
+
+# capability-probe kernel -> (its module, its counter's prefix, its program)
+MOSAIC = {"roll": (mosaic, "ROLL", probe_mosaic),
+          "smem_dyn": (mosaic, "SMEM_DYN", probe_mosaic),
+          "vmem_dyn": (mosaic, "VMEM_DYN", probe_mosaic),
+          "fori": (mosaic, "FORI", probe_mosaic),
+          "smem_block": (mosaic, "SMEM_BLOCK", probe_mosaic),
+          "hbm_to_smem": (mosaic2, "HBM_TO_SMEM", probe_mosaic2),
+          "dyn_vec_load": (mosaic2, "DYN_VEC_LOAD", probe_mosaic2),
+          "sublane_roll": (mosaic3, "SUBLANE_ROLL", probe_mosaic3),
+          "row_dma_2d": (mosaic3, "ROW_DMA_2D", probe_mosaic3),
+          "flat_rotate": (mosaic3, "FLAT_ROTATE", probe_mosaic3)}
+
+
+@pytest.mark.parametrize("name,edge", [
+    (name, edge) for name, (_, _, program) in MOSAIC.items()
+    for edge in [None] + program.EDGES[name]])
+def test_mosaic_kernel(name, edge):
+    """Each capability-probe kernel at its program's input (edge None) and,
+    on full-range data, at the scalars of its program's EDGES."""
+    mod, prefix, program = MOSAIC[name]
+    args = program.inputs("cuda")[name]
+    if edge is not None:
+        args = [_full_range(t.numel(), len(edge) + t.numel()).view(t.shape)
+                for t in args[:-1]]
+        args.append(torch.tensor(edge, dtype=torch.int32, device="cuda"))
+    before = getattr(mod, f"{prefix}_LAUNCHES")
+    got = getattr(mod, name)(*args)
+    _equal((got,), (getattr(mod, f"{name}_plain")(*args),))
+    assert getattr(mod, f"{prefix}_LAUNCHES") == before + 1
+
+
+def test_mosaic_wrappers_refuse_bad_input():
+    """A copy's source off a 16-byte boundary, scalars on the CPU."""
+    big = torch.zeros(256 * 128 + 4, dtype=torch.int32, device="cuda")
+    s = torch.zeros(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="aligned"):
+        mosaic2.hbm_to_smem(big[1:1 + mosaic2.HS_N], s)
+    with pytest.raises(ValueError, match="aligned"):
+        mosaic3.row_dma_2d(big[1:1 + 256 * 128].view(256, 128), s[:1])
+    mosaic2.hbm_to_smem(big[4:4 + mosaic2.HS_N], s)     # 16 bytes in
+    with pytest.raises(ValueError):
+        mosaic.roll(big[:1024].view(1, 1024), s[:1].cpu())
+    with pytest.raises(ValueError):
+        mosaic3.flat_rotate(big[:4096].view(32, 128).cpu(), s[:1])

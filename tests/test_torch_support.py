@@ -19,6 +19,7 @@ from tpujoin_torch import bench, oracle, profile
 from tpujoin_torch.core import config, datagen
 from tpujoin_torch.probes import (bench_mat2, count_variants, fill_variants,
                                   primitives, probe_fill, probe_flatroll,
+                                  probe_mosaic, probe_mosaic2, probe_mosaic3,
                                   probe_opcost, profile_expand_runs,
                                   roll_cost)
 from tpujoin_torch.utils import hw, shapes, timing
@@ -131,12 +132,13 @@ def test_port_imports_without_jax():
             "tpujoin_torch.profile\n"
             "from tpujoin_torch.kernels import _build, carry_scan, compact, "
             "expand, expand_fill, expand_groups, expand_runs, fill_phases, "
-            "flat_roll, forward_fill, merge_count, merge_sort, op_chain, "
-            "runs_phases, select_chain, shift_loop, slab_count, smem_gather, "
-            "stream\n"
+            "flat_roll, forward_fill, merge_count, merge_sort, mosaic, "
+            "mosaic2, mosaic3, op_chain, runs_phases, select_chain, "
+            "shift_loop, slab_count, smem_gather, stream\n"
             "from tpujoin_torch.probes import bench_mat2, count_variants, "
             "fill_variants, primitives, probe_fill, probe_flatroll, "
-            "probe_opcost, profile_expand_runs, roll_cost\n"
+            "probe_mosaic, probe_mosaic2, probe_mosaic3, probe_opcost, "
+            "profile_expand_runs, roll_cost\n"
             "from tpujoin_torch.ops import aggregate, filter, "
             "nested_loop_join, radix, sort\n"
             "from tpujoin_torch.core import table\n"
@@ -179,6 +181,9 @@ def test_gpu_entry_points_refuse_without_cuda(tmp_path):
     assert roll_cost.main(["--rows", "16"]) == 1
     assert probe_opcost.main(["--n", "16384"]) == 1
     assert probe_flatroll.main(["--n", "16384"]) == 1
+    assert probe_mosaic.main(["--scale", "0.0001"]) == 1
+    assert probe_mosaic2.main([]) == 1
+    assert probe_mosaic3.main([]) == 1
 
 
 _KEYS = np.arange(1, 65, dtype=np.int32)

@@ -52,6 +52,16 @@ _SIGNATURES = {
     "tj_op_chain": (P, P, I64, I64, I64, I64, I64, P),
     "tj_select_chain": (P, P, I64, P, I64, I64, P),
     "tj_flat_roll": (P, P, I64, P, I64, P),
+    "tj_mosaic_roll": (P, P, P, P),
+    "tj_mosaic_smem_dyn": (P, P, P),
+    "tj_mosaic_vmem_dyn": (P, P, P, P),
+    "tj_mosaic_fori": (P, P, P, P),
+    "tj_mosaic_smem_block": (P, P, P, P),
+    "tj_mosaic_hbm_to_smem": (P, P, P, P),
+    "tj_mosaic_dyn_vec_load": (P, P, P, P),
+    "tj_mosaic_sublane_roll": (P, P, P, P),
+    "tj_mosaic_row_dma_2d": (P, P, P, P),
+    "tj_mosaic_flat_rotate": (P, P, P, P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -161,6 +171,36 @@ def check_cuda_i32(*tensors: torch.Tensor) -> None:
         if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"expected contiguous 1-D int32, got {t.dtype} "
                              f"{tuple(t.shape)}")
+
+
+def check_shapes(name: str, *pairs) -> None:
+    """Raise unless each (tensor, shape) pair is a contiguous int32 tensor
+    of that shape."""
+    for t, shape in pairs:
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: expected contiguous int32 {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}"
+                             f"{'' if t.is_contiguous() else ' strided'}")
+
+
+def launch(entry: str, out_shape: tuple, *inputs: torch.Tensor
+           ) -> torch.Tensor:
+    """Launch ``entry`` on ``inputs`` (contiguous int32, one CUDA device)
+    into a new int32 output of ``out_shape``; raises on any other device or
+    a launch error."""
+    check_cuda_i32(*(t.view(-1) for t in inputs))
+    out = torch.empty(out_shape, dtype=torch.int32, device=inputs[0].device)
+    call(entry, out.device, *(t.data_ptr() for t in inputs), out.data_ptr())
+    return out
+
+
+def check_aligned(t: torch.Tensor, align: int = 16) -> None:
+    """Raise unless ``t``'s data starts on an ``align``-byte boundary, as a
+    bulk copy's source must."""
+    if t.data_ptr() % align:
+        raise ValueError(f"expected data aligned to {align} bytes, got "
+                         f"address {t.data_ptr():#x}")
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
