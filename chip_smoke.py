@@ -10,8 +10,12 @@ Phases, one line each (details on stderr):
               each queued behind a device-side hold so that the events
               time the device and not the host's launches):
               K1-K4 on ref_low_selectivity's keys (sorted, counted,
-              compacted), then K1 on a ragged width with the i32 extremes
-              and a small join checked against the native oracle; K5 and
+              compacted: K1's histogram and each digit pass on the keys as
+              they arrive at its digit, sort_pairs on both sides, timed
+              beside torch.sort(stable=True)), then K1 on a ragged width
+              with the i32 extremes and a small join checked against the
+              native oracle; sort_pairs on ref_high_selectivity's build
+              keys, timed beside torch.sort; K5 and
               K7 (expand_fill, expand_groups, expand_runs) on
               ref_high_selectivity's count state at its full capacity
               (~1e9 slots), and probe_materialize_groups on that state,
@@ -234,6 +238,33 @@ def bound(results: dict, name: str, nbytes: float, ops: float,
         bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
+def check_sort_pairs(keys, ids, what: str, timed: bool = False):
+    """K1's sort_pairs bitwise against sort_pairs_plain (keys and ids);
+    with ``timed``, both and one torch.sort(stable=True) timed beside it.
+    Returns the kernels' result."""
+    got = merge_sort.sort_pairs(keys, ids)
+    err = max_abs_err(got, merge_sort.sort_pairs_plain(keys, ids))
+    if err:
+        raise AssertionError(f"sort_pairs ({what}) differs from its plain "
+                             f"version: {err}")
+    n = keys.shape[0]
+    line = f"sort_pairs n={n} ({what}): exact"
+    if timed:
+        pairs_ms = cuda_ms(lambda: merge_sort.sort_pairs(keys, ids),
+                           "sort_pairs")
+        plain_ms = cuda_ms(lambda: merge_sort.sort_pairs_plain(keys, ids),
+                           "sort_pairs plain")
+        torch_ms = cuda_ms(lambda: torch.sort(keys, stable=True),
+                           "torch.sort")
+        floor_ms = (4 * n + 4 * 16 * n) / hbm_bytes_per_s() * 1e3
+        line += (f"; {pairs_ms:.6f} ms, histogram + 4 passes (floor "
+                 f"{floor_ms:.6f} ms; torch.sort + gather {plain_ms:.6f} "
+                 f"ms; one torch.sort(stable=True), whose indices are the "
+                 f"ids here, {torch_ms:.6f} ms)")
+    say("kernels", line)
+    return got
+
+
 def kernels_phase(dev, cfg, results: dict) -> None:
     """K1-K4 against their plain versions on the inputs the main path
     gives them for ``cfg``: both sorts of the keys, the count of the sorted
@@ -243,40 +274,33 @@ def kernels_phase(dev, cfg, results: dict) -> None:
     bk, pk = bench.config_keys(cfg, dev)
     n = bk.shape[0]
     ids = torch.arange(n, dtype=torch.int32, device=dev)
-    tile = merge_sort.TILE
-    check_kernel("block_sort", lambda: merge_sort.block_sort(bk, ids),
-                 lambda: merge_sort.segment_sort_plain(bk, ids, tile),
-                 results)
-    bound(results, "block_sort", 16 * n, n * math.log2(tile))
-    # the sort's last merge pass: runs of `run` into one of up to 2 * run
-    run = tile
-    while 2 * run < n:
-        run *= 2
-    kr, ir = merge_sort.segment_sort_plain(bk, ids, run)
-    check_kernel("merge_pass", lambda: merge_sort.merge_pass(kr, ir, run),
-                 lambda: merge_sort.segment_sort_plain(kr, ir, 2 * run),
-                 results)
-    bound(results, "merge_pass", 16 * n, n)
-    del kr, ir
-    err = max_abs_err(merge_sort.sort_pairs(bk, ids),
-                      merge_sort.sort_pairs_plain(bk, ids))
-    if err:
-        raise AssertionError(f"sort_pairs differs from torch.sort: {err}")
-    pairs_ms = cuda_ms(lambda: merge_sort.sort_pairs(bk, ids), "sort_pairs")
-    plain_ms = cuda_ms(lambda: merge_sort.sort_pairs_plain(bk, ids),
-                       "sort_pairs plain")
-    torch_ms = cuda_ms(lambda: torch.sort(bk, stable=True), "torch.sort")
-    say("kernels", f"sort_pairs n={n}: exact; {pairs_ms:.3f} ms "
-        f"(torch.sort + gather {plain_ms:.3f} ms; "
-        f"one torch.sort(stable=True), whose indices are the ids here, "
-        f"{torch_ms:.3f} ms); "
-        f"last merge pass run {run}")
-    bsk, _ = merge_sort.sort_pairs(bk, ids)
+    check_kernel("sort_histogram",
+                 lambda: (merge_sort.sort_histogram(bk),),
+                 lambda: (merge_sort.sort_histogram_plain(bk),), results)
+    bound(results, "sort_histogram", 4 * n + 4 * 4 * 256, 4 * n)
+    # each digit pass on the keys as they arrive at its digit; the entry
+    # keeps the slowest pass
+    hist = merge_sort.sort_histogram(bk)
+    k, i, passes = bk, ids, []
+    for shift in merge_sort.SHIFTS:
+        got = check_kernel(
+            f"sort_pass[shift {shift}]",
+            lambda k=k, i=i, s=shift: merge_sort.sort_pass(k, i, s, hist),
+            lambda k=k, i=i, s=shift: merge_sort.sort_pass_plain(k, i, s),
+            None)
+        passes.append((got["ms"], shift, got))
+        k, i = merge_sort.sort_pass_plain(k, i, shift)
+    slowest_ms, slowest_shift, slowest = max(passes, key=lambda p: p[0])
+    results["sort_pass"].update(slowest)
+    bound(results, "sort_pass", 16 * n, n)
+    say("kernels", f"sort_pass: slowest at shift {slowest_shift}, "
+        f"{slowest_ms:.3f} ms; bound "
+        f"{results['sort_pass']['bound_ms']:.3f} ms a pass")
+    del k, i, hist, passes
+    bsk, _ = check_sort_pairs(bk, ids, "build side", timed=True)
     m = pk.shape[0]
     pids = torch.arange(m, dtype=torch.int32, device=dev)
-    psk, psid = merge_sort.sort_pairs(pk, pids)
-    if max_abs_err((psk, psid), merge_sort.sort_pairs_plain(pk, pids)):
-        raise AssertionError("probe-side sort_pairs differs from torch.sort")
+    psk, psid = check_sort_pairs(pk, pids, "probe side")
     del bk, pk, ids, pids
 
     check_kernel("merge_count",
@@ -315,18 +339,19 @@ def kernels_phase(dev, cfg, results: dict) -> None:
     keys[7::1003] = IMAX - 1
     keys[11::1009] = -IMAX - 1
     ids = torch.arange(n, dtype=torch.int32, device=dev)
-    kb, ib = merge_sort.block_sort(keys, ids)
-    for got, want in ((merge_sort.block_sort(keys, ids),
-                       merge_sort.segment_sort_plain(keys, ids, tile)),
-                      (merge_sort.merge_pass(kb, ib, tile),
-                       merge_sort.segment_sort_plain(kb, ib, 2 * tile)),
-                      (merge_sort.sort_pairs(keys, ids),
-                       merge_sort.sort_pairs_plain(keys, ids))):
-        if max_abs_err(got, want):
-            raise AssertionError("K1 differs from its plain version on the "
-                                 "i32 extremes")
-    say("kernels", f"K1 n={n} with the i32 extremes: exact")
-    del keys, ids, kb, ib
+    hist = merge_sort.sort_histogram(keys)
+    if max_abs_err((hist,), (merge_sort.sort_histogram_plain(keys),)):
+        raise AssertionError("sort_histogram differs from its plain version "
+                             "on the i32 extremes")
+    k, i = keys, ids
+    for shift in merge_sort.SHIFTS:
+        want = merge_sort.sort_pass_plain(k, i, shift)
+        if max_abs_err(merge_sort.sort_pass(k, i, shift, hist), want):
+            raise AssertionError(f"sort_pass at shift {shift} differs from "
+                                 f"its plain version on the i32 extremes")
+        k, i = want
+    check_sort_pairs(keys, ids, "i32 extremes")
+    del keys, ids, hist, k, i, want
 
     # a small join on the card against the oracle and the CPU path
     rng = np.random.default_rng(0)
@@ -350,12 +375,15 @@ def same_pairs(r, s, r2, s2) -> bool:
 
 
 def dense_kernels_phase(dev, cfg, results: dict) -> None:
-    """K5 and K7 against their plain versions on the inputs the dense path
-    gives them for ``cfg``: its keys sorted and counted, the RLE form and
-    group heads, at the full capacity; then probe_materialize_groups on
-    that state, expand_groups' path, counted and held against fill's
-    columns."""
+    """K1's sort_pairs on ``cfg``'s build keys, bitwise and timed beside
+    torch.sort; then K5 and K7 against their plain versions on the inputs
+    the dense path gives them for ``cfg``: its keys sorted and counted,
+    the RLE form and group heads, at the full capacity; then
+    probe_materialize_groups on that state, expand_groups' path, counted
+    and held against fill's columns."""
     bk, pk = bench.config_keys(cfg, dev)
+    check_sort_pairs(bk, torch.arange(bk.shape[0], dtype=torch.int32,
+                                      device=dev), "build side", timed=True)
     ht = build(bk)
     state, total, nonzero = mj.probe_count(ht, pk)
     total, nonzero, m = int(total), int(nonzero), pk.shape[0]
@@ -453,8 +481,8 @@ def k6_phase(dev, results: dict) -> None:
         f"kept, k_cap {gcap}")
 
 
-COUNTERS = {"block_sort": (merge_sort, "LAUNCHES"),
-            "merge_pass": (merge_sort, "MERGE_LAUNCHES"),
+COUNTERS = {"sort_histogram": (merge_sort, "HIST_LAUNCHES"),
+            "sort_pass": (merge_sort, "PASS_LAUNCHES"),
             "merge_count": (merge_count, "LAUNCHES"),
             "compact3": (compact, "LAUNCHES"),
             "expand": (expand, "LAUNCHES"),
@@ -1108,10 +1136,10 @@ def main(argv=None) -> int:
 
     src = "tpujoin_torch/csrc/"
     results = {
-        "block_sort": {"source": src + "merge_sort.cu",
-                       "replaces": "tpujoin/kernels/merge_sort.py:389"},
-        "merge_pass": {"source": src + "merge_sort.cu",
-                       "replaces": "tpujoin/kernels/merge_sort.py:307"},
+        **{name: {"source": src + "radix_sort.cu",
+                  "replaces": "tpujoin/kernels/merge_sort.py:389, "
+                              "tpujoin/kernels/merge_sort.py:307"}
+           for name in ("sort_histogram", "sort_pass")},
         "merge_count": {"source": src + "merge_count.cu",
                         "replaces": "tpujoin/kernels/merge_count.py:138"},
         "compact3": {"source": src + "compact.cu",
@@ -1168,11 +1196,11 @@ def main(argv=None) -> int:
         lambda: dense_kernels_phase(dev, high, results),
         lambda: runs_phase(dev, results),
         lambda: slice_phase(dev, low, results, path=(
-            "block_sort", "merge_pass", "merge_count", "compact3", "expand"),
-            record=("block_sort", "merge_pass", "merge_count", "compact3",
-                    "expand")),
+            "sort_histogram", "sort_pass", "merge_count", "compact3",
+            "expand"), record=("sort_histogram", "sort_pass", "merge_count",
+                               "compact3", "expand")),
         lambda: check_dense_slice(slice_phase(dev, high, results, path=(
-            "block_sort", "merge_pass", "merge_count", "expand_fill"),
+            "sort_histogram", "sort_pass", "merge_count", "expand_fill"),
             record=("expand_fill",))),
         lambda: k6_phase(dev, results),
         lambda: ops_phase(dev, results),

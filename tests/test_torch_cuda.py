@@ -45,21 +45,30 @@ def _sort_keys(dist: str, n: int) -> np.ndarray:
         return rng.integers(1, 10**9, n).astype(np.int32)
     if dist == "dup8":
         return rng.integers(0, 8, n).astype(np.int32)
+    if dist == "all_equal":
+        return np.full(n, 42, np.int32)
     return rng.choice(np.array([IMIN, -1, 0, 1, IMAX - 1, IMAX], np.int32), n)
 
 
-@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 3 * 4096 + 5,
-                               (1 << 20) + 3])
-@pytest.mark.parametrize("dist", ["uniform", "dup8", "extremes"])
+_TILE = merge_sort.TILE
+
+
+@pytest.mark.parametrize("n", [0, 1, _TILE - 1, _TILE, _TILE + 1,
+                               3 * _TILE + 5, (1 << 20) + 3])
+@pytest.mark.parametrize("dist", ["uniform", "dup8", "all_equal",
+                                  "extremes"])
 def test_sort_kernels(n, dist):
+    """The histogram, each digit pass on the keys as they arrive at its
+    digit, and the whole sort, each bitwise against its plain version."""
     keys = torch.from_numpy(_sort_keys(dist, n)).cuda()
     ids = torch.arange(n, dtype=torch.int32, device="cuda")
-    tile = merge_sort.TILE
-    _equal(merge_sort.block_sort(keys, ids),
-           merge_sort.segment_sort_plain(keys, ids, tile))
-    kb, ib = merge_sort.block_sort(keys, ids)
-    _equal(merge_sort.merge_pass(kb, ib, tile),
-           merge_sort.segment_sort_plain(kb, ib, 2 * tile))
+    hist = merge_sort.sort_histogram(keys)
+    _equal((hist,), (merge_sort.sort_histogram_plain(keys),))
+    k, i = keys, ids
+    for shift in merge_sort.SHIFTS:
+        want = merge_sort.sort_pass_plain(k, i, shift)
+        _equal(merge_sort.sort_pass(k, i, shift, hist), want)
+        k, i = want
     _equal(merge_sort.sort_pairs(keys, ids),
            merge_sort.sort_pairs_plain(keys, ids))
 
@@ -235,8 +244,21 @@ def test_wrappers_count_launches_and_refuse_bad_input():
         merge_count.merge_count(x, x.long())
     with pytest.raises(ValueError):
         merge_count.merge_count(x, x.cpu())
+    before = merge_sort.HIST_LAUNCHES, merge_sort.PASS_LAUNCHES
+    merge_sort.sort_pairs(x, x)
+    assert (merge_sort.HIST_LAUNCHES, merge_sort.PASS_LAUNCHES) == (
+        before[0] + 1, before[1] + 4)
+    hist = merge_sort.sort_histogram(x)
     with pytest.raises(ValueError):
-        merge_sort.block_sort(x[::2], x[::2])
+        merge_sort.sort_histogram(x[::2])
+    with pytest.raises(ValueError):
+        merge_sort.sort_pass(x[::2], x[::2], 0, hist)
+    with pytest.raises(ValueError):
+        merge_sort.sort_pass(x, x, 4, hist)
+    with pytest.raises(ValueError):
+        merge_sort.sort_pass(x, x, 0, hist[:2])
+    with pytest.raises(ValueError):
+        merge_sort.sort_pass(x, x, 0, hist, out=(x, torch.empty_like(x)))
 
 
 def _mask(n: int, sel: float, dtype: str) -> torch.Tensor:

@@ -31,10 +31,19 @@ __device__ __forceinline__ unsigned long long load_status(
   return *reinterpret_cast<const volatile unsigned long long*>(p);
 }
 
+// The word alone, with no fence: for a caller whose readers use nothing
+// but the word, as radix_sort.cu's digit counts, where 256 threads a tile
+// publish twice and a fence after each would stall them.
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long flag,
+                                             uint32_t value) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = flag | value;
+}
+
 __device__ __forceinline__ void publish(unsigned long long* p,
                                         unsigned long long flag,
                                         uint32_t value) {
-  *reinterpret_cast<volatile unsigned long long*>(p) = flag | value;
+  store_status(p, flag, value);
   __threadfence();
 }
 

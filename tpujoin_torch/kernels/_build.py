@@ -31,8 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P, I64 = ctypes.c_void_p, ctypes.c_int64
 # argtypes of every entry point; the trailing pointer is the CUDA stream
 _SIGNATURES = {
-    "tj_block_sort": (P, P, P, P, I64, P),
-    "tj_merge_pass": (P, P, P, P, I64, I64, P),
+    "tj_sort_histogram": (P, I64, P, P),
+    "tj_sort_pass": (P, P, P, P, I64, I64, P, P, I64, P),
     "tj_merge_count": (P, I64, P, I64, P, P, P),
     "tj_compact_count": (P, I64, I64, P, P),
     "tj_compact_ids": (P, I64, I64, P, P, P, I64, P),

@@ -1,15 +1,23 @@
-"""(key, id) merge sort: K1, block sort + merge passes (csrc/merge_sort.cu).
+"""(key, id) sort: K1, an LSD radix sort on two kernels (csrc/radix_sort.cu).
 
-The port of tpujoin/kernels/merge_sort.py. :func:`block_sort` sorts each
-``TILE``-pair tile into an ascending run; :func:`merge_pass` merges adjacent
-runs of length ``run`` into runs of ``2 * run``; :func:`sort_pairs` chains
-them, ping-ponging between two buffer pairs. Any n sorts, with every i32
-key: the ragged last tile and run are handled by bounds, not by pad keys.
+The counterpart of tpujoin/kernels/merge_sort.py, which sorts by a bitonic
+tile sort and merge passes because a TPU has no vector scatter or gather.
+On the H100 a merge tree costs more than the sort is worth: at 100M pairs
+it is one tile sort and ceil(log2(1e8 / 2048)) = 16 merge passes, each
+moving 16 B a pair (0.478 ms at 3.35 TB/s), so >= 8.1 ms even with every
+pass at its byte bound, slower than PyTorch's own stable sort of the
+keys. A radix sort of the 32-bit key in 8-bit digits reads the keys once
+for the digit histograms (4 B a pair) and then makes four passes of 16 B
+a pair: a floor of ~2.03 ms at 100M.
 
-Both kernels are stable, so the sort is: ties keep their input order. The
-plain versions are stable sorts of each tile or run pair (a stable sort of
-two ascending runs is their A-first merge), so kernel and plain version
-agree bitwise on keys and ids.
+:func:`sort_histogram` counts all four digits of the keys (sign bit
+flipped, so unsigned digit order is i32 order); :func:`sort_pass` is one
+stable counting-sort pass on one digit; :func:`sort_pairs` chains one
+histogram and always four passes, ping-ponging between two buffer pairs.
+Any n sorts, with every i32 key: no sentinel keys, no padding.
+
+Each pass is stable, so the sort is: ties keep their input order, and
+kernels and plain versions agree bitwise on keys and ids.
 
 A CUDA tensor goes through the kernels, a CPU tensor through the plain
 versions; anything else raises.
@@ -19,91 +27,102 @@ from __future__ import annotations
 import torch
 
 from tpujoin_torch.kernels import _build
+from tpujoin_torch.utils.shapes import cdiv
 
-TILE = 2048             # pairs per block-sorted run (SORT_TILE in the .cu)
-LAUNCHES = 0            # block-sort kernel launches
-MERGE_LAUNCHES = 0      # merge-pass kernel launches
+TILE = 7680             # pairs a sort_pass block ranks (PASS_TILE in the .cu)
+RADIX = 256             # bins of an 8-bit digit
+SHIFTS = (0, 8, 16, 24)  # the digits of a 32-bit key, least significant first
+HIST_LAUNCHES = 0       # histogram kernel launches
+PASS_LAUNCHES = 0       # digit-pass kernel launches
 
 
-def segment_sort_plain(keys: torch.Tensor, ids: torch.Tensor, seg: int):
-    """Stable sort of each ``seg``-long segment of (keys, ids), the last
-    one ragged: the plain version of both kernels."""
+def _digit(keys: torch.Tensor, shift: int) -> torch.Tensor:
+    """The 8-bit digit at ``shift`` of the keys with the sign bit flipped,
+    whose unsigned order is the keys' signed order."""
+    return ((keys ^ torch.iinfo(torch.int32).min) >> shift) & (RADIX - 1)
+
+
+def _check_shift(shift: int) -> None:
+    if shift not in SHIFTS:
+        raise ValueError(f"sort_pass: shift {shift} is not one of {SHIFTS}")
+
+
+def sort_histogram_plain(keys: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`sort_histogram`: one bincount a digit."""
+    return torch.stack([
+        torch.bincount(_digit(keys, s).long(), minlength=RADIX)
+        for s in SHIFTS]).to(torch.int32)
+
+
+def sort_histogram(keys: torch.Tensor) -> torch.Tensor:
+    """The (4, 256) int32 histograms of the keys' 8-bit digits, least
+    significant first, sign bit flipped."""
+    global HIST_LAUNCHES
+    if _build.on_cpu(keys):
+        return sort_histogram_plain(keys)
+    _build.check_cuda_i32(keys)
+    hist = torch.zeros((len(SHIFTS), RADIX), dtype=torch.int32,
+                       device=keys.device)
     n = keys.shape[0]
-    full = (n // seg) * seg
-    ko, io = torch.empty_like(keys), torch.empty_like(ids)
-    parts = [(0, full, seg)] if full else []
-    if n > full:
-        parts.append((full, n, n - full))
-    for lo, hi, width in parts:
-        k2 = keys[lo:hi].view(-1, width)
-        sk, order = torch.sort(k2, dim=1, stable=True)
-        ko[lo:hi] = sk.reshape(-1)
-        io[lo:hi] = torch.gather(ids[lo:hi].view(-1, width), 1,
-                                 order).reshape(-1)
-    return ko, io
+    if n:
+        _build.call("tj_sort_histogram", keys.device, keys.data_ptr(), n,
+                    hist.data_ptr())
+        HIST_LAUNCHES += 1
+    return hist
 
 
-def _outputs(keys: torch.Tensor, ids: torch.Tensor,
-             out: tuple[torch.Tensor, torch.Tensor] | None):
-    """The (keys, ids) output pair of a kernel, allocated unless given,
-    after checking inputs and outputs alike."""
+def sort_pass_plain(keys: torch.Tensor, ids: torch.Tensor, shift: int):
+    """The plain version of :func:`sort_pass`: a stable torch.sort of the
+    digit, and a gather of keys and ids."""
+    _check_shift(shift)
+    _, order = torch.sort(_digit(keys, shift), stable=True)
+    return keys[order], ids[order]
+
+
+def sort_pass(keys: torch.Tensor, ids: torch.Tensor, shift: int,
+              hist: torch.Tensor,
+              out: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """One stable pass of (keys, ids) on the 8-bit digit at ``shift`` (0,
+    8, 16 or 24). ``hist`` is :func:`sort_histogram` of the keys, in any
+    order of them; the kernel takes the digit's output offsets from it."""
+    global PASS_LAUNCHES
+    _check_shift(shift)
+    _build.check_shapes("sort_pass", (hist, (len(SHIFTS), RADIX)))
+    if _build.on_cpu(keys, ids):
+        return sort_pass_plain(keys, ids, shift)
     ko, io = out if out is not None else (torch.empty_like(keys),
                                           torch.empty_like(ids))
-    _build.check_cuda_i32(keys, ids, ko, io)
+    _build.check_cuda_i32(keys, ids, ko, io, hist.view(-1))
     n = keys.shape[0]
     if ids.shape[0] != n or ko.shape[0] != n or io.shape[0] != n:
         raise ValueError("keys, ids and outputs differ in length")
-    return ko, io
-
-
-def block_sort(keys: torch.Tensor, ids: torch.Tensor,
-               out: tuple[torch.Tensor, torch.Tensor] | None = None):
-    """Sort each TILE-long tile of (keys, ids) into an ascending run."""
-    global LAUNCHES
-    if _build.on_cpu(keys, ids):
-        return segment_sort_plain(keys, ids, TILE)
-    ko, io = _outputs(keys, ids, out)
-    n = keys.shape[0]
+    if n and ({ko.data_ptr(), io.data_ptr()}
+              & {keys.data_ptr(), ids.data_ptr()}):
+        raise ValueError("sort_pass: the outputs overwrite the inputs")
     if n:
-        _build.call("tj_block_sort", keys.device, keys.data_ptr(),
-                    ids.data_ptr(), ko.data_ptr(), io.data_ptr(), n)
-        LAUNCHES += 1
-    return ko, io
-
-
-def merge_pass(keys: torch.Tensor, ids: torch.Tensor, run: int,
-               out: tuple[torch.Tensor, torch.Tensor] | None = None):
-    """Merge adjacent ascending runs of length ``run`` (a multiple of TILE;
-    the last run may be short) into ascending runs of ``2 * run``."""
-    global MERGE_LAUNCHES
-    if run <= 0 or run % TILE:
-        raise ValueError(f"merge_pass: run {run} is not a multiple of {TILE}")
-    if _build.on_cpu(keys, ids):
-        return segment_sort_plain(keys, ids, 2 * run)
-    ko, io = _outputs(keys, ids, out)
-    n = keys.shape[0]
-    if n:
-        _build.call("tj_merge_pass", keys.device, keys.data_ptr(),
-                    ids.data_ptr(), ko.data_ptr(), io.data_ptr(), n, run)
-        MERGE_LAUNCHES += 1
+        # the tiles' status words and the ticket, zeroed by the entry point
+        words = cdiv(n, TILE) * RADIX + 1
+        scratch = torch.empty(words, dtype=torch.int64, device=keys.device)
+        _build.call("tj_sort_pass", keys.device, keys.data_ptr(),
+                    ids.data_ptr(), ko.data_ptr(), io.data_ptr(), n, shift,
+                    hist.data_ptr(), scratch.data_ptr(), words)
+        PASS_LAUNCHES += 1
     return ko, io
 
 
 def sort_pairs(keys: torch.Tensor, ids: torch.Tensor):
-    """Stable ascending sort of (key i32, id i32) pairs of any length:
-    one block sort, then ceil(log2(n / TILE)) merge passes between two
-    buffer pairs. The inputs are left as they are. On CPU tensors it is
+    """Stable ascending sort of (key i32, id i32) pairs of any length: one
+    histogram, then always four digit passes between two buffer pairs,
+    with no read back to the host. The inputs are left as they are and the
+    result is always new tensors. On CPU tensors it is
     :func:`sort_pairs_plain`, which gives the same answer."""
     if _build.on_cpu(keys, ids):
         return sort_pairs_plain(keys, ids)
-    n = keys.shape[0]
+    hist = sort_histogram(keys)
     bufs = [(torch.empty_like(keys), torch.empty_like(ids)) for _ in range(2)]
-    k, i = block_sort(keys, ids, out=bufs[0])
-    run, cur = TILE, 0
-    while run < n:
-        cur ^= 1
-        k, i = merge_pass(k, i, run, out=bufs[cur])
-        run *= 2
+    k, i = keys, ids
+    for p, shift in enumerate(SHIFTS):
+        k, i = sort_pass(k, i, shift, hist, out=bufs[p % 2])
     return k, i
 
 
