@@ -18,8 +18,12 @@ Phases, one line each (details on stderr):
               keys, timed beside torch.sort; K5 and
               K7 (expand_fill, expand_groups, expand_runs) on
               ref_high_selectivity's count state at its full capacity
-              (~1e9 slots), and probe_materialize_groups on that state,
-              which is expand_groups' path;
+              (~1e9 slots), K5's partition pass and fill kernel each
+              timed under torch.profiler beside the whole call, K5 again
+              on a state of 2^26 one-slot runs (groups from offset > 0,
+              periods 1 to above a tile, a ragged capacity), and
+              probe_materialize_groups on the dense state, which is
+              expand_groups' path;
   4. runs     a 4096 x 4096 join with ~16 matches per row through
               merge_join on the card: the runs path (expand_runs), checked
               against the oracle and the CPU path;
@@ -73,14 +77,15 @@ Phases, one line each (details on stderr):
               above 0 for its program's run;
  11. mosaic   the ten capability-probe kernels (roll, smem_dyn, vmem_dyn,
               fori, smem_block, hbm_to_smem, dyn_vec_load, sublane_roll,
-              row_dma_2d, flat_rotate; two of them TMA copies) against
+              row_dma_2d, flat_rotate; hbm_to_smem a TMA copy) against
               their plain versions at their programs' inputs, bitwise and
               timed, with the one PyTorch call that computes the same
               function where there is one, then at each program's EDGES
               scalars on full-range data (shifts 0, -1, 1023, 1024 and the
               i32 ends; offsets at both ends of a copy's precondition and
-              past them); the host's time a call of the two copies beside
-              a kernel without one; then the three programs
+              past them); row_dma_2d and narrow_copy three times each, in
+              turns; the host's time a call of the TMA copy beside two
+              kernels without one; then the three programs
               (tpujoin_torch.probes.probe_mosaic, 2 and 3) at full size,
               each kernel's launch counter above 0 for its program's run.
 Then one JSON line of per-kernel results (times, launches, the bound from
@@ -236,6 +241,56 @@ def bound(results: dict, name: str, nbytes: float, ops: float,
     results[name].update(
         bound_ms=max(by_bytes, by_ops),
         bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def kernel_ms(fn, names: tuple, reps: int = 5) -> dict:
+    """Device ms of each kernel whose name holds one of ``names``: the
+    least over ``reps`` runs of ``fn`` under torch.profiler (device rows
+    only). Raises if one of them did not run."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    best = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for key in names:
+            if key in e.name:
+                best[key] = min(best.get(key, math.inf),
+                                e.time_range.elapsed_us() / 1e3)
+    missing = [key for key in names if key not in best]
+    if missing:
+        raise AssertionError(f"the profiler saw no {missing} kernel")
+    return best
+
+
+def one_slot_state(slots: int, dev, seed: int = 9):
+    """expand_fill's inputs for ``slots`` one-slot runs, each tile meeting
+    TILE + 1 runs: ~slots / 64 groups from offset 1 on (the slots before
+    the first group take the canonical negative phase), periods 1 to
+    300, every 97th above a tile, over 2^22 source ids; the capacity is no
+    multiple of the tile."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    roff = torch.arange(slots, dtype=torch.int32, device=dev)
+    rsid = torch.randperm(slots, generator=g, device=dev).to(torch.int32)
+    heads = torch.nonzero(torch.rand(slots, generator=g, device=dev)
+                          < 1 / 64).flatten()
+    goff = heads[heads > 0].to(torch.int32)
+    ngroups, n = goff.shape[0], 1 << 22
+    gnb = torch.randint(1, 301, (ngroups,), generator=g, device=dev,
+                        dtype=torch.int32)
+    gnb[::2] = 1
+    gnb[::97] = expand_fill.TILE + 1
+    glo = torch.randint(-8, n - 8, (ngroups,), generator=g, device=dev,
+                        dtype=torch.int32)
+    src = torch.randperm(n, generator=g, device=dev).to(torch.int32)
+    return (roff, rsid, goff, glo, gnb, src, slots, ngroups, slots,
+            slots + expand_fill.TILE // 2 + 5)
 
 
 def check_sort_pairs(keys, ids, what: str, timed: bool = False):
@@ -409,6 +464,20 @@ def dense_kernels_phase(dev, cfg, results: dict) -> None:
     for name in ("expand_fill", "expand_groups"):
         bound(results, name,
               8 * nonzero + 12 * ngroups + 4 * src_read + 8 * cap, cap)
+    split = kernel_ms(lambda: expand_fill.expand_fill(*fill_args),
+                      ("partition_kernel", "expand_fill_kernel"))
+    say("kernels", f"expand_fill at {cap} slots: partition pass "
+        f"{split['partition_kernel']:.6f} ms, fill kernel "
+        f"{split['expand_fill_kernel']:.6f} ms (torch.profiler, least of "
+        f"5), whole call {results['expand_fill']['ms']:.6f} ms (events); "
+        f"bound {results['expand_fill']['bound_ms']:.6f} ms")
+    del fill_args, runs_args
+    torch.cuda.empty_cache()
+    one_slot = one_slot_state(1 << 26, dev)
+    check_kernel(f"expand_fill[{1 << 26} one-slot runs]",
+                 lambda: expand_fill.expand_fill(*one_slot),
+                 lambda: expand_fill.expand_fill_plain(*one_slot), None)
+    del one_slot
     bound(results, "expand_runs", 12 * nonzero + 4 * src_read + 8 * cap, cap)
     say("kernels", f"dense widths: {ht.num_rows} x {m} keys, nonzero="
         f"{nonzero} k_cap={k_cap} groups={ngroups} total={total} "
@@ -1048,9 +1117,10 @@ def mosaic_phase(dev, results: dict) -> None:
     """The ten capability-probe kernels against their plain versions at
     their programs' inputs (exact), timed, with the library call beside
     those that have one (checked equal first), and at their programs' EDGES
-    scalars on full-range data; the host's cost a call of the two TMA
-    copies against a kernel without one; then the three programs, each
-    kernel launched in its program's run."""
+    scalars on full-range data; row_dma_2d and its library call three
+    times each, in turns; the host's cost a call of the TMA copy against
+    two kernels without one; then the three programs, each kernel
+    launched in its program's run."""
     for name, (mod, program, words) in MOSAIC.items():
         fn, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
         args = program.inputs(dev)[name]
@@ -1078,12 +1148,23 @@ def mosaic_phase(dev, results: dict) -> None:
                 raise AssertionError(f"{name} differs from plain at {edge}")
         say("mosaic", f"{line}; exact at {len(edges)} edge inputs")
 
+    args = probe_mosaic3.inputs(dev)["row_dma_2d"]
+    call, what = mosaic_library("row_dma_2d", args)
+    turns = {"kernel": [], "library": []}
+    for who in ("kernel", "library", "library", "kernel", "kernel",
+                "library"):
+        fn = (lambda: mosaic3.row_dma_2d(*args)) if who == "kernel" else call
+        turns[who].append(cuda_ms(fn, f"row_dma_2d {who}"))
+    say("mosaic", f"row_dma_2d in turns with {what}: kernel " + ", ".join(
+        f"{ms:.6f}" for ms in turns["kernel"]) + " ms; library " + ", "
+        .join(f"{ms:.6f}" for ms in turns["library"]) + " ms")
+
     costs = {name: host_us(lambda name=name, mod=MOSAIC[name][0], program=(
         MOSAIC[name][1].inputs(dev)[name]): getattr(mod, name)(*program))
         for name in ("row_dma_2d", "hbm_to_smem", "sublane_roll")}
     say("mosaic", "host us a call (wrapper and launch): " + ", ".join(
-        f"{name} {us:.3f}" for name, us in costs.items()) + "; row_dma_2d "
-        "alone encodes a tensor map")
+        f"{name} {us:.3f}" for name, us in costs.items()) + "; hbm_to_smem "
+        "alone is a TMA copy")
 
     for name, mod in (("probe_mosaic", probe_mosaic),
                       ("probe_mosaic2", probe_mosaic2),

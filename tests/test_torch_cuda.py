@@ -137,13 +137,19 @@ def _rle_state(ngroups: int, seed: int):
     padded past the real rows (runs: offset == total; groups: INT32_MAX)."""
     rng = np.random.default_rng(seed)
     gnb = rng.integers(1, 301, ngroups)
-    gnp = rng.integers(1, 51, ngroups)
+    return _groups_state(gnb, rng.integers(1, 51, ngroups), rng)
+
+
+def _groups_state(gnb, gnp, rng, first: int = 0):
+    """The RLE state of groups of ``gnp`` runs over build slices of ``gnb``
+    ids, its offsets from ``first`` on."""
+    ngroups = len(gnb)
     glo = np.cumsum(gnb + rng.integers(0, 4, ngroups)) - gnb
     n = int(glo[-1] + gnb[-1]) + 7 if ngroups else 16
     cnt = np.repeat(gnb, gnp)
     lo = np.repeat(glo, gnp)
-    offs = np.cumsum(cnt) - cnt
-    total = int(cnt.sum())
+    offs = np.cumsum(cnt) - cnt + first
+    total = int(cnt.sum()) + first
     goff = offs[np.concatenate([[0], np.cumsum(gnp)[:-1]])] if ngroups else []
 
     def col(vals, pad, fill):
@@ -159,12 +165,57 @@ def _rle_state(ngroups: int, seed: int):
     return runs, groups, src, k, ngroups, total
 
 
-@pytest.mark.parametrize("ngroups,extra", [(1, 0), (7, 3), (300, 1001),
-                                           (20_000, 5), (0, 100)])
-def test_expand_pair_kernels(ngroups, extra):
-    """K5, K7a and K7b against their plain versions on random RLE states,
-    at ragged capacities and at total = 0."""
-    runs, groups, src, k, ng, total = _rle_state(ngroups, ngroups + extra)
+_FILL_TILE = expand_fill.TILE
+# states that stress K5's windows, each at a capacity total + extra that
+# is no multiple of the tile
+WINDOW_STATES = [("one_slot_runs", 777), ("one_group_many_tiles", 5),
+                 ("nb_above_tile", 13), ("first_offset", 999),
+                 ("total_zero", 3000)]
+
+
+def _window_state(name: str):
+    """(runs, groups, src, nruns, ngroups, total, joined): ``name``'s state,
+    and whether expand_runs gives the same pairs on it. one_slot_runs: a
+    tile meets TILE + 1 runs, all periods 1; one_group_many_tiles: one
+    group over ~47 tiles; nb_above_tile: periods TILE + 1 and 2 TILE + 3;
+    first_offset: runs and groups from slot 1500 on, so the slots before
+    take the canonical negative phase and no run; total_zero: rows, but
+    total 0."""
+    rng = np.random.default_rng(len(name))
+    if name == "one_slot_runs":
+        return (*_groups_state(np.ones(300, int),
+                               rng.integers(1, 201, 300), rng), True)
+    if name == "one_group_many_tiles":
+        return (*_groups_state(np.array([97]), np.array([1000]), rng), True)
+    if name == "nb_above_tile":
+        nb = np.array([_FILL_TILE + 1, 2 * _FILL_TILE + 3, 1,
+                       _FILL_TILE + 1, 5])
+        return (*_groups_state(nb, np.array([3, 2, 7, 1, 4]), rng), True)
+    if name == "first_offset":
+        return (*_groups_state(rng.integers(1, 301, 50),
+                               rng.integers(1, 51, 50), rng, first=1500),
+                False)
+    assert name == "total_zero"
+    *state, _ = _groups_state(rng.integers(1, 301, 50),
+                              rng.integers(1, 51, 50), rng)
+    return (*state, 0, True)
+
+
+def _state(state, extra: int):
+    """_rle_state(state, state + extra) for a group count, else the window
+    state of that name; with ``joined``."""
+    if isinstance(state, str):
+        return _window_state(state)
+    return (*_rle_state(state, state + extra), True)
+
+
+@pytest.mark.parametrize("state,extra", [(1, 0), (7, 3), (300, 1001),
+                                         (20_000, 5), (0, 100)]
+                         + WINDOW_STATES)
+def test_expand_pair_kernels(state, extra):
+    """K5, K7a and K7b against their plain versions on random RLE states
+    and on the window states, at ragged capacities and at total = 0."""
+    runs, groups, src, k, ng, total, joined = _state(state, extra)
     cap = total + extra
     fill_args = (runs["roff"], runs["sid"], groups["goff"], groups["glo"],
                  groups["gnb"], src, k, ng, total, cap)
@@ -177,7 +228,8 @@ def test_expand_pair_kernels(ngroups, extra):
            expand_groups.expand_groups_plain(*fill_args))
     got = expand_runs.expand_runs(*runs_args)
     _equal(got, expand_runs.expand_runs_plain(*runs_args))
-    _equal(got, fill)   # the same pairs, from runs or from groups
+    if joined:
+        _equal(got, fill)   # the same pairs, from runs or from groups
     assert (fill[0][total:] == -1).all() and (fill[1][total:] == -1).all()
     assert (expand_fill.LAUNCHES, expand_groups.LAUNCHES,
             expand_runs.LAUNCHES) == tuple(b + (cap > 0) for b in before)
@@ -571,11 +623,11 @@ def test_scatter_markers_on_card():
 
 
 @pytest.mark.parametrize("variant", list(fill_phases.VARIANTS))
-@pytest.mark.parametrize("ngroups,extra", [(1, 0), (300, 1001), (20_000, 5),
-                                          (0, 100)])
+@pytest.mark.parametrize("state,extra", [(1, 0), (300, 1001), (20_000, 5),
+                                         (0, 100)] + WINDOW_STATES)
 @pytest.mark.parametrize("step", [1024, 16384])
-def test_expand_fill_v_kernel(variant, ngroups, extra, step):
-    runs, groups, src, k, ng, total = _rle_state(ngroups, ngroups + extra)
+def test_expand_fill_v_kernel(variant, state, extra, step):
+    runs, groups, src, k, ng, total, _ = _state(state, extra)
     args = (runs["roff"], runs["sid"], groups["goff"], groups["glo"],
             groups["gnb"], src, k, ng, total, total + extra)
     before = fill_phases.LAUNCHES
@@ -709,6 +761,18 @@ def test_mosaic_kernel(name, edge):
     got = getattr(mod, name)(*args)
     _equal((got,), (getattr(mod, f"{name}_plain")(*args),))
     assert getattr(mod, f"{prefix}_LAUNCHES") == before + 1
+
+
+@pytest.mark.parametrize("row", [40, 0, 1, 8, 223, 224, -1, -31, -32, 225,
+                                 255, 256, IMIN, IMAX])
+def test_row_dma_2d_kernel(row):
+    """row_dma_2d's direct load at every first row that
+    tests/test_torch_probe_mosaic.py holds on the CPU, on full-range
+    data."""
+    x = _full_range(mosaic3.RD_X_ROWS * mosaic3.LANES, 7).view(
+        mosaic3.RD_X_ROWS, -1)
+    s = torch.tensor([row], dtype=torch.int32, device="cuda")
+    _equal((mosaic3.row_dma_2d(x, s),), (mosaic3.row_dma_2d_plain(x, s),))
 
 
 def test_mosaic_wrappers_refuse_bad_input():

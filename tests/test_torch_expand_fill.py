@@ -82,13 +82,23 @@ CASES = {
     "max_period": ([NBMAX] * 3, [7] * 3, [2, 0, 1], np.arange(NBMAX + 512)),
     "dense_runs": ([1] * 600, [3] * 600,
                    np.random.default_rng(0).permutation(600), np.arange(16)),
+    # run offsets on 512-slot steps, many on 1024- and 4096-slot tile edges
+    "tile_edge_runs": ([1024] * 4 + [2048] * 4 + [512] * 8 + [3] * 5,
+                       [0] * 4 + [1100] * 4 + [3200] * 8 + [5000] * 5,
+                       np.random.default_rng(1).permutation(21),
+                       np.arange(6000)),
+    # a tile's run window at its TILE + 1 bound, in one group of period 1
+    "one_slot_runs_one_group": ([1] * 1020, [5] * 1020,
+                                np.random.default_rng(2).permutation(1020),
+                                np.arange(64)),
     **{f"randomized_{s}": _randomized(s) for s in range(4)},
 }
 # where each JAX kernel fits: expand_fill holds periods up to NBMAX,
 # expand_groups at most w - 2 runs per 1024-slot tile
 FILL_CASES = [c for c in CASES if c not in ("giant_group_spanning_steps",
                                             "long_run_small_groups")]
-GROUPS_CASES = [c for c in CASES if c != "dense_runs"]
+GROUPS_CASES = [c for c in CASES
+                if c not in ("dense_runs", "one_slot_runs_one_group")]
 
 
 def _torch(cols):

@@ -18,22 +18,40 @@
 // the ~1e9 slots of the high-selectivity join, ~2.4 ms at 3.35 TB/s). The
 // run and group metadata and the source ids read are ~0.1 GB there.
 //
-// What the simple design does about it: each thread owns ITEMS consecutive
-// slots and writes them with one 16-byte store per column. Slots are
-// ascending and the offsets non-decreasing, so a block first finds the runs
-// (and groups) of its first and last real slot, and each thread then runs
-// upper_bound - 1 over that short window only, as K4 does. The TPU
-// kernels' marker scatter and doubling forward fill, periodic images,
-// flat rolls, SMEM/DMA slabs and fit envelope stood in for a gather; here
-// the source id is one load. A source index outside [0, n) reads -1, as
-// the TPU kernels' -1 padding of the source does.
+// K5 is two launches. A partition pass, one thread per tile boundary,
+// finds each TILE-slot tile's first run and first group by a binary search
+// of the whole offset columns: all the searches run at once, so their
+// dependent loads overlap. In the fill kernel a block takes BLOCK_TILES
+// consecutive tiles in turn and copies each tile's runs and groups into
+// shared memory. The first nruns run offsets are strictly increasing, so
+// every run holds a slot and a tile meets at most TILE + 1 runs; groups
+// likewise. The window is sized for that bound: no envelope, no second
+// path. Each thread owns ITEMS consecutive slots, finds its first
+// slot's group and run by a search of the window, then walks: the group
+// steps when the slot reaches the next group's offset, the run likewise,
+// and the phase (t - goff) mod gnb is divided once and then steps by one,
+// wrapping at gnb. The group walk comes first, so its loads are in flight
+// during the run walk. Each thread writes one 16-byte store per column
+// per 4 slots. The source id is one load, a group's slice staying in L1
+// or L2. The TPU kernels' marker scatter and
+// doubling forward fill, periodic images, flat rolls, SMEM/DMA slabs and
+// fit envelope stood in for that gather. A source index outside [0, n)
+// reads -1, as the TPU kernels' -1 padding of the source does.
+//
+// K7's runs kernel keeps the simple design: a block finds the runs of its
+// first and last slot, and each thread runs upper_bound - 1 over that
+// window, as K4 does.
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int ITEMS = 4;                    // slots per thread
-constexpr int SLOTS = THREADS * ITEMS;      // slots per block
+constexpr int ITEMS = 4;                    // consecutive slots per thread
+constexpr int SLOTS = THREADS * ITEMS;      // slots per block at a time
+constexpr int TILE = 2048;                  // slots of one K5 window
+constexpr int BLOCK_TILES = 16;             // tiles a K5 block takes
+constexpr int PART_THREADS = 256;
+static_assert(TILE % SLOTS == 0, "a tile is whole sweeps of a block");
 
 __device__ __forceinline__ int32_t take_or_neg(const int32_t* src, int64_t n,
                                                int64_t idx) {
@@ -56,69 +74,191 @@ __device__ __forceinline__ void store(int32_t* __restrict__ r_out,
   }
 }
 
+// First index in the shared a[0, n) with a[i] > x, in 32-bit indices.
+__device__ __forceinline__ int upper_bound_smem(const int32_t* a, int n,
+                                                int32_t x) {
+  int lo = 0;
+  while (lo < n) {
+    const int mid = (lo + n) >> 1;
+    if (a[mid] <= x) lo = mid + 1; else n = mid;
+  }
+  return lo;
+}
+
+// Entry i of `nparts`: the run and the group of slot i * tile, as
+// upper_bound - 1 (the run -1 before the first run, the group clamped to
+// 0). nruns or ngroups 0 skips that search.
+__global__ void __launch_bounds__(PART_THREADS)
+partition_kernel(const int32_t* __restrict__ roff, int64_t nruns,
+                 const int32_t* __restrict__ goff, int64_t ngroups,
+                 int64_t tile, int64_t nparts, int32_t* __restrict__ run_part,
+                 int32_t* __restrict__ grp_part) {
+  const int64_t i = (int64_t)blockIdx.x * PART_THREADS + threadIdx.x;
+  if (i >= nparts) return;
+  // past INT32_MAX every offset lies at or before the slot
+  const int32_t t = (int32_t)min(i * tile, (int64_t)INT32_MAX);
+  run_part[i] = (int32_t)(tj::upper_bound(roff, 0, nruns, t) - 1);
+  grp_part[i] = (int32_t)max(tj::upper_bound(goff, 0, ngroups, t) - 1,
+                             (int64_t)0);
+}
+
 // What expand_fill_kernel computes of the build column.
 enum GroupPhase { GROUPS_NONE = 0, GROUPS_INDEX = 1, GROUPS_GATHER = 2 };
 
-// RUNS: the run search and the probe column (else -1); GROUPS: what of the
-// build column runs (GROUPS_GATHER is K5). Each block takes `per_block`
-// slots, SLOTS at a time.
+// Words of shared memory a window array takes: TILE + 1 entries and the
+// sentinel after the last.
+constexpr int WINDOW = TILE + 2;
+
+// The words of a window: the runs' two arrays where the run walk runs,
+// the groups' three where the group walk does.
+__host__ __device__ constexpr int window_words(bool runs, int groups) {
+  return ((runs ? 2 : 0) + (groups ? 3 : 0)) * WINDOW;
+}
+static_assert(window_words(true, GROUPS_GATHER) * 4 <= 48 * 1024,
+              "the window fits the default shared-memory limit");
+
+// RUNS: the run walk and the probe column (else -1); GROUPS: what of the
+// build column runs (GROUPS_GATHER is K5). Each block takes `tiles` tiles
+// of `tile` slots (tile divides TILE), one at a time; the partition
+// has an entry for every tile boundary up to the last tile with a slot
+// below total.
 template <bool RUNS, int GROUPS>
 __global__ void __launch_bounds__(THREADS)
 expand_fill_kernel(const int32_t* __restrict__ roff,
-                   const int32_t* __restrict__ rsid, int64_t nruns,
+                   const int32_t* __restrict__ rsid,
                    const int32_t* __restrict__ goff,
                    const int32_t* __restrict__ glo,
                    const int32_t* __restrict__ gnb, int64_t ngroups,
+                   const int32_t* __restrict__ run_part,
+                   const int32_t* __restrict__ grp_part,
                    const int32_t* __restrict__ src, int64_t n, int64_t total,
                    int32_t* __restrict__ r_out, int32_t* __restrict__ s_out,
-                   int64_t capacity, int64_t per_block) {
-  // [run window lo, hi), [group window lo, hi) of the SLOTS real slots
-  __shared__ int64_t window[4];
-  const int64_t block_end = min((int64_t)(blockIdx.x + 1) * per_block,
-                                capacity);
-  for (int64_t first = (int64_t)blockIdx.x * per_block; first < block_end;
-       first += SLOTS) {
-    const int64_t last = min(first + SLOTS, total) - 1;
-    if (first <= last) {
-      if (RUNS && threadIdx.x == 0)
-        window[0] = tj::upper_bound(roff, 0, nruns, (int32_t)first);
-      if (RUNS && threadIdx.x == 32)
-        window[1] = tj::upper_bound(roff, 0, nruns, (int32_t)last);
-      if (GROUPS && threadIdx.x == 64)
-        window[2] = tj::upper_bound(goff, 0, ngroups, (int32_t)first);
-      if (GROUPS && threadIdx.x == 96)
-        window[3] = tj::upper_bound(goff, 0, ngroups, (int32_t)last);
+                   int64_t capacity, int64_t tiles, int tile) {
+  // the window: runs (offset, probe id), then groups (offset, slice start,
+  // period), each entry j the j-th run or group from the tile's first
+  __shared__ int32_t window[window_words(RUNS, GROUPS)];
+  int32_t* w_roff = window;
+  int32_t* w_rsid = w_roff + WINDOW;
+  int32_t* w_goff = window + (RUNS ? 2 * WINDOW : 0);
+  int32_t* w_glo = w_goff + WINDOW;
+  int32_t* w_gnb = w_glo + WINDOW;
+  const bool groups = GROUPS != GROUPS_NONE && ngroups > 0;
+  const int64_t block_end = min((blockIdx.x + 1) * tiles * tile, capacity);
+  for (int64_t part = blockIdx.x * tiles; part * tile < block_end; ++part) {
+    const int64_t first = part * tile;
+    int nr = 0, ng = 0;
+    if (first < total) {
+      if (RUNS) {
+        const int32_t lo = run_part[part];
+        nr = min(run_part[part + 1] - lo + 1, tile + 1);
+        for (int j = threadIdx.x; j < nr; j += THREADS) {
+          const int32_t r = lo + j;        // -1: before the first run
+          w_roff[j] = r < 0 ? INT32_MIN : roff[r];
+          w_rsid[j] = r < 0 ? -1 : rsid[r];
+        }
+        if (threadIdx.x == 0) w_roff[nr] = INT32_MAX;
+      }
+      if (groups) {
+        const int32_t lo = grp_part[part];
+        ng = min(grp_part[part + 1] - lo + 1, tile + 1);
+        for (int j = threadIdx.x; j < ng; j += THREADS) {
+          w_goff[j] = goff[lo + j];
+          w_glo[j] = glo[lo + j];
+          w_gnb[j] = max(gnb[lo + j], 1);
+        }
+        if (threadIdx.x == 0) w_goff[ng] = INT32_MAX;
+      }
     }
     __syncthreads();
-    const int64_t t0 = first + (int64_t)threadIdx.x * ITEMS;
-    if (t0 < block_end) {
+    const int64_t tile_end = min(first + tile, block_end);
+    for (int64_t t0 = first + (int64_t)threadIdx.x * ITEMS;
+         t0 < tile_end; t0 += SLOTS) {
       int32_t rv[ITEMS], sv[ITEMS];
 #pragma unroll
-      for (int i = 0; i < ITEMS; ++i) {
-        const int64_t t = t0 + i;
-        rv[i] = sv[i] = -1;
-        if (t > last) continue;
-        const int32_t ti = (int32_t)t;
-        if (RUNS) {
-          const int64_t r = tj::upper_bound(roff, window[0], window[1], ti) - 1;
-          if (r >= 0) sv[i] = rsid[r];
+      for (int i = 0; i < ITEMS; ++i) rv[i] = sv[i] = -1;
+      // the slots below total: t0 .. t0 + real - 1, all below 2^31
+      const int real =
+          (int)max(min((int64_t)ITEMS, total - t0), (int64_t)0);
+      const int32_t s0 = (int32_t)t0;
+      if (groups && real > 0) {
+        int g = max(upper_bound_smem(w_goff, ng, s0) - 1, 0);
+        int32_t nb = w_gnb[g], next = w_goff[g + 1];
+        int64_t base = w_glo[g];
+        // (t0 - goff) mod nb, canonical; d < 0 only before the first group
+        const int64_t d = t0 - w_goff[g];
+        int32_t phase = d >= 0 ? (int32_t)((uint32_t)d % (uint32_t)nb)
+                               : (int32_t)((nb - 1) - ((-d - 1) % nb));
+#pragma unroll
+        for (int i = 0; i < ITEMS; ++i) {
+          if (i >= real) break;
+          if (s0 + i >= next) {            // a new group starts at this slot
+            do { ++g; } while (s0 + i >= w_goff[g + 1]);
+            nb = w_gnb[g];
+            base = w_glo[g];
+            next = w_goff[g + 1];
+            phase = 0;
+          }
+          rv[i] = GROUPS == GROUPS_GATHER ? take_or_neg(src, n, base + phase)
+                                          : (int32_t)(base + phase);
+          phase = phase + 1 == nb ? 0 : phase + 1;
         }
-        if (!GROUPS || ngroups <= 0) continue;
-        const int64_t g = max(
-            tj::upper_bound(goff, window[2], window[3], ti) - 1, (int64_t)0);
-        const int32_t nb = max(gnb[g], 1);
-        const int64_t d = t - goff[g];
-        // (t - goff) mod nb, canonical; d < 0 only before the first group
-        const int64_t phase = d >= 0 ? (int64_t)((uint32_t)d % (uint32_t)nb)
-                                     : (nb - 1) - ((-d - 1) % nb);
-        rv[i] = GROUPS == GROUPS_GATHER
-                    ? take_or_neg(src, n, (int64_t)glo[g] + phase)
-                    : (int32_t)((int64_t)glo[g] + phase);
+      }
+      if (RUNS && real > 0) {
+        // entry 0 starts at or before the tile, the sentinel after it
+        int j = upper_bound_smem(w_roff, nr, s0) - 1;
+        int32_t sid = w_rsid[j], next = w_roff[j + 1];
+#pragma unroll
+        for (int i = 0; i < ITEMS; ++i) {
+          if (i >= real) break;
+          while (s0 + i >= next) {         // once per run reached
+            ++j;
+            sid = w_rsid[j];
+            next = w_roff[j + 1];
+          }
+          sv[i] = sid;
+        }
       }
       store(r_out, s_out, t0, capacity, rv, sv);
     }
-    __syncthreads();   // the window is rewritten for the next SLOTS
+    __syncthreads();   // the window is rewritten for the next tile
   }
+}
+
+int gcd(int64_t a, int64_t b) {
+  while (b) { const int64_t r = a % b; a = b; b = r; }
+  return (int)a;
+}
+
+// The partition pass, then the fill kernel with `per_block` slots a block.
+// `parts` holds two columns of `nparts` entries, the runs' then the
+// groups'; it needs one entry per tile of the slots below min(total,
+// capacity), and one more.
+template <bool RUNS, int GROUPS>
+int launch_fill(const int32_t* roff, const int32_t* rsid, int64_t nruns,
+                const int32_t* goff, const int32_t* glo, const int32_t* gnb,
+                int64_t ngroups, const int32_t* src, int64_t n,
+                int64_t total, int32_t* r_out, int32_t* s_out,
+                int64_t capacity, int32_t* parts, int64_t nparts,
+                int64_t per_block, cudaStream_t stream) {
+  const int tile = gcd(per_block, TILE);
+  const int64_t valid = min(total, capacity);
+  const int64_t need = (valid + tile - 1) / tile + 1;
+  if (nparts < need) return (int)cudaErrorInvalidValue;
+  int32_t* run_part = parts;
+  int32_t* grp_part = parts + nparts;
+  if (valid > 0) {
+    partition_kernel<<<(unsigned)((need + PART_THREADS - 1) / PART_THREADS),
+                       PART_THREADS, 0, stream>>>(
+        roff, RUNS ? nruns : 0, goff, GROUPS ? ngroups : 0, tile, need,
+        run_part, grp_part);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned grid = (unsigned)((capacity + per_block - 1) / per_block);
+  expand_fill_kernel<RUNS, GROUPS><<<grid, THREADS, 0, stream>>>(
+      roff, rsid, goff, glo, gnb, GROUPS ? ngroups : 0, run_part, grp_part,
+      src, n, total, r_out, s_out, capacity, per_block / tile, tile);
+  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -159,26 +299,29 @@ int64_t blocks_for(int64_t capacity) { return (capacity + SLOTS - 1) / SLOTS; }
 }  // namespace
 
 // Caller guarantees: 0 <= nruns <= len(roff), 0 <= ngroups <= len(goff),
-// 0 <= total < 2^31, outputs 16-byte aligned with capacity slots.
+// 0 <= total < 2^31, the first nruns run offsets and the first ngroups
+// group offsets strictly increasing, outputs 16-byte aligned with capacity
+// slots; `parts` 2 x nparts i32 scratch, nparts at least
+// ceil(min(total, capacity) / TILE) + 1.
 extern "C" int tj_expand_fill(const int32_t* roff, const int32_t* rsid,
                               int64_t nruns, const int32_t* goff,
                               const int32_t* glo, const int32_t* gnb,
                               int64_t ngroups, const int32_t* src, int64_t n,
                               int64_t total, int32_t* r_out, int32_t* s_out,
-                              int64_t capacity, cudaStream_t stream) {
+                              int64_t capacity, int32_t* parts,
+                              int64_t nparts, cudaStream_t stream) {
   if (capacity <= 0) return 0;
-  expand_fill_kernel<true, GROUPS_GATHER>
-      <<<(unsigned)blocks_for(capacity), THREADS, 0, stream>>>(
-          roff, rsid, nruns, goff, glo, gnb, ngroups, src, n, total, r_out,
-          s_out, capacity, SLOTS);
-  return (int)cudaGetLastError();
+  return launch_fill<true, GROUPS_GATHER>(
+      roff, rsid, nruns, goff, glo, gnb, ngroups, src, n, total, r_out,
+      s_out, capacity, parts, nparts, BLOCK_TILES * TILE, stream);
 }
 
-// expand_fill_v: K5's kernel with `step` slots a block and the phases of
-// `variant`: 0 all (full), 1 no run search (no_fill: s = -1), 2 no group
-// search and no gather (no_groups: r = -1), 3 the group search and modulo
+// expand_fill_v: K5's kernels with `step` slots a block and the phases of
+// `variant`: 0 all (full), 1 no run walk (no_fill: s = -1), 2 no group
+// walk and no gather (no_groups: r = -1), 3 the group walk and phase
 // without the gather (no_double: r = glo[g] + phase). Caller guarantees
-// as tj_expand_fill, and step a positive multiple of SLOTS.
+// as tj_expand_fill, step a positive multiple of SLOTS and nparts at
+// least ceil(min(total, capacity) / gcd(step, TILE)) + 1.
 extern "C" int tj_expand_fill_v(const int32_t* roff, const int32_t* rsid,
                                 int64_t nruns, const int32_t* goff,
                                 const int32_t* glo, const int32_t* gnb,
@@ -186,23 +329,22 @@ extern "C" int tj_expand_fill_v(const int32_t* roff, const int32_t* rsid,
                                 int64_t n, int64_t total, int32_t* r_out,
                                 int32_t* s_out, int64_t capacity,
                                 int64_t step, int64_t variant,
+                                int32_t* parts, int64_t nparts,
                                 cudaStream_t stream) {
   if (capacity <= 0) return 0;
   if (step <= 0 || step % SLOTS != 0) return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)((capacity + step - 1) / step);
 #define TJ_LAUNCH(RUNS, GROUPS)                                            \
-  expand_fill_kernel<RUNS, GROUPS><<<grid, THREADS, 0, stream>>>(          \
-      roff, rsid, nruns, goff, glo, gnb, ngroups, src, n, total, r_out,    \
-      s_out, capacity, step)
+  return launch_fill<RUNS, GROUPS>(roff, rsid, nruns, goff, glo, gnb,     \
+                                   ngroups, src, n, total, r_out, s_out,  \
+                                   capacity, parts, nparts, step, stream)
   switch (variant) {
-    case 0: TJ_LAUNCH(true, GROUPS_GATHER); break;
-    case 1: TJ_LAUNCH(false, GROUPS_GATHER); break;
-    case 2: TJ_LAUNCH(true, GROUPS_NONE); break;
-    case 3: TJ_LAUNCH(true, GROUPS_INDEX); break;
+    case 0: TJ_LAUNCH(true, GROUPS_GATHER);
+    case 1: TJ_LAUNCH(false, GROUPS_GATHER);
+    case 2: TJ_LAUNCH(true, GROUPS_NONE);
+    case 3: TJ_LAUNCH(true, GROUPS_INDEX);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef TJ_LAUNCH
-  return (int)cudaGetLastError();
 }
 
 // Caller guarantees: 0 <= k <= len(offs), 0 <= total < 2^31, outputs

@@ -38,7 +38,8 @@ _SIGNATURES = {
     "tj_compact_ids": (P, I64, I64, P, P, P, I64, P),
     "tj_compact_cols": (P, I64, I64, P, P, I64, P, P, I64, P),
     "tj_expand": (P, P, P, I64, P, P, I64, P),
-    "tj_expand_fill": (P, P, I64, P, P, P, I64, P, I64, I64, P, P, I64, P),
+    "tj_expand_fill": (P, P, I64, P, P, P, I64, P, I64, I64, P, P, I64, P, I64,
+                       P),
     "tj_expand_runs": (P, P, P, I64, P, I64, I64, P, P, I64, P),
     "tj_stream_scale": (P, P, I64, P),
     "tj_smem_gather": (P, I64, P, P, I64, P),
@@ -48,7 +49,7 @@ _SIGNATURES = {
     "tj_run_variant": (P, P, P, P, P, P, I64, I64, I64, I64, P, P, P),
     "tj_fill_forward": (P, P, I64, I64, P, I64, P),
     "tj_expand_fill_v": (P, P, I64, P, P, P, I64, P, I64, I64, P, P, I64, I64,
-                         I64, P),
+                         I64, P, I64, P),
     "tj_op_chain": (P, P, I64, I64, I64, I64, I64, P),
     "tj_select_chain": (P, P, I64, P, I64, I64, P),
     "tj_flat_roll": (P, P, I64, P, I64, P),

@@ -10,8 +10,15 @@ rsid[r]); both columns are -1 from the total on. A CUDA tensor goes through
 the kernel, a CPU tensor through :func:`expand_fill_plain`; anything else
 raises. The TPU kernel's ``fits`` flag is gone: this kernel has no
 envelope.
+
+On the card one call is two launches: a partition pass that finds each
+TILE-slot tile's first run and group, into a scratch the wrapper
+allocates (:func:`partition_scratch`), and the fill kernel, which walks
+each tile from a shared-memory window of its runs and groups.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -19,6 +26,7 @@ from tpujoin_torch.kernels import _build
 
 LAUNCHES = 0
 PLAIN_CHUNK = 1 << 26   # slots per step of the plain versions
+TILE = 2048             # slots of one K5 window (TILE in the .cu)
 
 
 def check_sizes(name: str, counted, total: int, capacity: int) -> None:
@@ -73,12 +81,23 @@ def expand_fill_plain(roff, rsid, goff, glo, gnb, src, nruns: int,
     return r_out, s_out
 
 
+def partition_scratch(total: int, capacity: int, device,
+                      per_block: int = TILE):
+    """The uninitialised scratch of K5's partition pass for ``per_block``
+    slots a block, and its rows: two int32 columns of one row per
+    gcd(per_block, TILE)-slot tile below min(total, capacity), and one
+    more."""
+    tile = math.gcd(per_block, TILE)
+    rows = -(-max(min(total, capacity), 0) // tile) + 1
+    return torch.empty(2 * rows, dtype=torch.int32, device=device), rows
+
+
 def launch(name: str, roff, rsid, goff, glo, gnb, src, nruns, ngroups,
            total, capacity):
-    """The checks and the launch of expand_fill_kernel, shared by
-    :func:`expand_fill` and ``expand_groups.expand_groups``. Returns
-    (r_vals, s_ids, launched): ``launched`` is False on the CPU path and
-    for capacity 0."""
+    """The checks and the launches of K5 (partition pass, fill kernel),
+    shared by :func:`expand_fill` and ``expand_groups.expand_groups``.
+    Returns (r_vals, s_ids, launched): ``launched`` is False on the CPU
+    path and for capacity 0."""
     nruns, ngroups, total = int(nruns), int(ngroups), int(total)
     check_sizes(name, ((nruns, roff.shape[0]), (nruns, rsid.shape[0]),
                        (ngroups, goff.shape[0]), (ngroups, glo.shape[0]),
@@ -91,10 +110,12 @@ def launch(name: str, roff, rsid, goff, glo, gnb, src, nruns, ngroups,
     _build.check_cuda_i32(roff, rsid, goff, glo, gnb, src, r_vals, s_ids)
     if capacity == 0:
         return r_vals, s_ids, False
+    parts, rows = partition_scratch(total, capacity, r_vals.device)
     _build.call("tj_expand_fill", r_vals.device, roff.data_ptr(),
                 rsid.data_ptr(), nruns, goff.data_ptr(), glo.data_ptr(),
                 gnb.data_ptr(), ngroups, src.data_ptr(), src.shape[0], total,
-                r_vals.data_ptr(), s_ids.data_ptr(), capacity)
+                r_vals.data_ptr(), s_ids.data_ptr(), capacity,
+                parts.data_ptr(), rows)
     return r_vals, s_ids, True
 
 

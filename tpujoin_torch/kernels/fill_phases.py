@@ -8,19 +8,20 @@ the total on; they differ on the TPU only in how its kernel rolls, and run
 one kernel here. Each ablation drops one phase of K5's kernel, keeps the
 column that the JAX variant also leaves whole, and writes the other as:
 
-  no_fill    s = -1: no run search (r kept)
-  no_groups  r = -1: no group search, no gather (s kept)
-  no_double  r = glo[g] + phase: the group search and the modulo without
-             the gather (s kept); the gather is what the TPU kernel's
-             doubling stood in for
+  no_fill    s = -1: no run walk (r kept)
+  no_groups  r = -1: no group walk, no gather (s kept)
+  no_double  r = glo[g] + phase: the group walk and the phase without the
+             gather (s kept); the gather is what the TPU kernel's doubling
+             stood in for
 
 In JAX that other column is unwritten VMEM (no_groups, no_double) or the
 raw marker column behind a carry that exists only because the TPU runs its
 grid in order (no_fill), so it has no JAX counterpart to be held against;
 it is held against the formula above. ``step`` is the slots a block takes
-(a multiple of 1024); the JAX knobs ``src_slab`` and ``gw`` size the TPU's
-VMEM slab and unroll and have no counterpart. The columns have
-round_up(capacity, step) slots, as the JAX kernel's grid. A CUDA tensor
+(a multiple of 1024; the kernel's windows then cover gcd(step,
+``expand_fill.TILE``) slots each); the JAX knobs ``src_slab`` and ``gw``
+size the TPU's VMEM slab and unroll and have no counterpart. The columns
+have round_up(capacity, step) slots, as the JAX kernel's grid. A CUDA tensor
 goes through the kernel, a CPU tensor through :func:`expand_fill_v_plain`;
 anything else raises, as does an unknown variant.
 """
@@ -30,13 +31,14 @@ import torch
 
 from tpujoin_torch.kernels import _build
 from tpujoin_torch.kernels.expand_fill import (PLAIN_CHUNK, check_sizes,
-                                               expand_fill_plain)
+                                               expand_fill_plain,
+                                               partition_scratch)
 from tpujoin_torch.utils.shapes import round_up
 
 LAUNCHES = 0
 SLOTS = 1024                # slots a block of K5 takes at a time
-# variant name -> the kernel's phases (0 all, 1 no run search, 2 no group
-# search nor gather, 3 no gather)
+# variant name -> the kernel's phases (0 all, 1 no run walk, 2 no group
+# walk nor gather, 3 no gather)
 VARIANTS = {"full": 0, "guardv2": 0, "guardv3": 0, "roll2": 0, "no_fill": 1,
             "no_groups": 2, "no_double": 3}
 
@@ -95,10 +97,11 @@ def expand_fill_v(roff: torch.Tensor, rsid: torch.Tensor, goff: torch.Tensor,
     s_out = torch.empty_like(r_out)
     _build.check_cuda_i32(roff, rsid, goff, glo, gnb, src, r_out, s_out)
     if cap:
+        parts, rows = partition_scratch(total, cap, r_out.device, step)
         _build.call("tj_expand_fill_v", r_out.device, roff.data_ptr(),
                     rsid.data_ptr(), nruns, goff.data_ptr(), glo.data_ptr(),
                     gnb.data_ptr(), ngroups, src.data_ptr(), src.shape[0],
                     total, r_out.data_ptr(), s_out.data_ptr(), cap, step,
-                    phases)
+                    phases, parts.data_ptr(), rows)
         LAUNCHES += 1
     return r_out, s_out

@@ -4,14 +4,15 @@
 
 The port of exp/probe_mosaic3.py's ``t_sublane_roll`` (:33),
 ``t_2d_row_dma`` (:55) and ``t_flat_rotate`` (:86), at their shapes, one
-block each. ``row_dma_2d`` moves its rows with a 2-D TMA copy from a tensor
-map, completing on an mbarrier (csrc/tma.cuh), as the TPU kernel moves them
-with a DMA and a semaphore. The rolls are defined for every i32 shift.
+block each. ``row_dma_2d``, a DMA and a semaphore on the TPU, is a direct
+load here: each thread reads the run-time row from ``s`` and moves one
+16-byte word of its row. The rolls are defined for every i32 shift.
 ``row_dma_2d``'s precondition for the TPU kernel's result: the row lies in
-[0, 256 - 32]; outside it, rows outside x are 0 (the copy's own zero fill),
-and the plain version gives the same values. The wrapper refuses an ``x``
-whose data is not 16-byte aligned. A CUDA tensor goes through the kernel, a
-CPU tensor through the ``*_plain`` version beside it; anything else raises.
+[0, 256 - 32]; outside it, rows outside x are 0, and the plain version
+gives the same values. The wrapper refuses an ``x`` whose data is not
+16-byte aligned, as its 16-byte loads need. A CUDA tensor goes through
+the kernel, a CPU tensor through the ``*_plain`` version beside it;
+anything else raises.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ FLAT_ROTATE_LAUNCHES = 0
 LANES = 128         # TL_LANES: a row of every tile
 SR_ROWS = 32        # sublane_roll's tile
 RD_X_ROWS = 256     # row_dma_2d's x
-RD_ROWS = 32        # its box and output
+RD_ROWS = 32        # its output
 FR_ROWS = 32        # flat_rotate's x
 FR_OUT_ROWS = 8     # its output
 
