@@ -12,10 +12,14 @@ Phases, one line each (details on stderr):
               K1-K4 on ref_low_selectivity's keys (sorted, counted,
               compacted: K1's histogram and each digit pass on the keys as
               they arrive at its digit, sort_pairs on both sides, timed
-              beside torch.sort(stable=True)), then K1 on a ragged width
-              with the i32 extremes and a small join checked against the
-              native oracle; sort_pairs on ref_high_selectivity's build
-              keys, timed beside torch.sort; K5 and
+              beside torch.sort(stable=True); K2's co-rank pass and count
+              kernel, and K4's partition pass and fill kernel, each timed
+              under torch.profiler beside the whole call), K2 on
+              zipf_skew's keys (10M x 10M, Zipf(1.0)), then K1 on a ragged
+              width with the i32 extremes and a small join checked against
+              the native oracle; sort_pairs on ref_high_selectivity's build
+              keys, timed beside torch.sort, and K2 on its sorted keys; K5
+              and
               K7 (expand_fill, expand_groups, expand_runs) on
               ref_high_selectivity's count state at its full capacity
               (~1e9 slots), K5's partition pass and fill kernel each
@@ -83,9 +87,10 @@ Phases, one line each (details on stderr):
               function where there is one, then at each program's EDGES
               scalars on full-range data (shifts 0, -1, 1023, 1024 and the
               i32 ends; offsets at both ends of a copy's precondition and
-              past them); row_dma_2d and narrow_copy three times each, in
-              turns; the host's time a call of the TMA copy beside two
-              kernels without one; then the three programs
+              past them); row_dma_2d, sublane_roll and dyn_vec_load and
+              their library calls three times each, in turns; the host's
+              time a call of the TMA copy beside two kernels without one;
+              then the three programs
               (tpujoin_torch.probes.probe_mosaic, 2 and 3) at full size,
               each kernel's launch counter above 0 for its program's run.
 Then one JSON line of per-kernel results (times, launches, the bound from
@@ -358,10 +363,7 @@ def kernels_phase(dev, cfg, results: dict) -> None:
     psk, psid = check_sort_pairs(pk, pids, "probe side")
     del bk, pk, ids, pids
 
-    check_kernel("merge_count",
-                 lambda: merge_count.merge_count(bsk, psk),
-                 lambda: merge_count.merge_count_plain(bsk, psk), results)
-    bound(results, "merge_count", 4 * n + 12 * m, n + m)
+    check_count(bsk, psk, cfg.name, results)
     lo, cnt = merge_count.merge_count(bsk, psk)
     del bsk, psk
     total, nonzero = int(cnt.sum(dtype=torch.int64)), int((cnt > 0).sum())
@@ -380,9 +382,21 @@ def kernels_phase(dev, cfg, results: dict) -> None:
                  lambda: expand.expand_plain(offs, lo_c, sid_c, capacity),
                  results)
     bound(results, "expand", 12 * k_cap + 8 * capacity, capacity)
+    split = kernel_ms(lambda: expand.expand(offs, lo_c, sid_c, capacity),
+                      ("partition_kernel", "expand_fill_kernel"))
+    say("kernels", f"expand at {capacity} slots: partition pass "
+        f"{split['partition_kernel']:.6f} ms, fill kernel "
+        f"{split['expand_fill_kernel']:.6f} ms (torch.profiler, least of "
+        f"5), whole call {results['expand']['ms']:.6f} ms (events); bound "
+        f"{results['expand']['bound_ms']:.6f} ms")
     say("kernels", f"main-path widths: {n} x {m} keys, nonzero={nonzero} "
         f"k_cap={k_cap} total={total} capacity={capacity}")
     del lo_c, cnt_c, sid_c, offs
+
+    # K2 on zipf_skew's keys (10M x 10M, Zipf(1.0) over [1, 1e6])
+    bk, pk = bench.config_keys(bench.scaled_config("zipf_skew"), dev)
+    check_count(torch.sort(bk).values, torch.sort(pk).values, "zipf_skew")
+    del bk, pk
 
     # K1 at a ragged width with the i32 extremes present
     gen = torch.Generator(device=dev)
@@ -423,6 +437,26 @@ def kernels_phase(dev, cfg, results: dict) -> None:
     say("kernels", f"small join 4096 x 4096: {len(r)} pairs, oracle PASS")
 
 
+def check_count(bsk, psk, what: str, results: dict | None = None) -> None:
+    """K2 bitwise against merge_count_plain on sorted keys, timed, and its
+    co-rank pass and count kernel timed apart under torch.profiler; the
+    kernels line's entry when ``results`` is given."""
+    n, m = bsk.shape[0], psk.shape[0]
+    name = "merge_count" if results is not None else f"merge_count[{what}]"
+    got = check_kernel(name, lambda: merge_count.merge_count(bsk, psk),
+                       lambda: merge_count.merge_count_plain(bsk, psk),
+                       results)
+    if results is not None:
+        bound(results, name, 4 * n + 12 * m, n + m)
+    split = kernel_ms(lambda: merge_count.merge_count(bsk, psk),
+                      ("corank_kernel", "merge_count_kernel"))
+    floor = (4 * n + 12 * m) / hbm_bytes_per_s() * 1e3
+    say("kernels", f"merge_count {what} {n} x {m}: co-rank pass "
+        f"{split['corank_kernel']:.6f} ms, count kernel "
+        f"{split['merge_count_kernel']:.6f} ms (torch.profiler, least of "
+        f"5), whole call {got['ms']:.6f} ms (events); bound {floor:.6f} ms")
+
+
 def same_pairs(r, s, r2, s2) -> bool:
     """Whether two numpy pair columns hold the same pair multiset."""
     return np.array_equal(np.sort(r.astype(np.int64) << 32 | s),
@@ -440,6 +474,7 @@ def dense_kernels_phase(dev, cfg, results: dict) -> None:
     check_sort_pairs(bk, torch.arange(bk.shape[0], dtype=torch.int32,
                                       device=dev), "build side", timed=True)
     ht = build(bk)
+    check_count(ht.sorted_keys, torch.sort(pk).values, cfg.name)
     state, total, nonzero = mj.probe_count(ht, pk)
     total, nonzero, m = int(total), int(nonzero), pk.shape[0]
     del bk, pk
@@ -1072,6 +1107,11 @@ MOSAIC = {"roll": (mosaic, probe_mosaic, mosaic.ROW),
           "flat_rotate": (mosaic3, probe_mosaic3, 8 * mosaic3.LANES)}
 
 
+# the one-block kernels timed three times each in turns with their library
+# call, the closest races of the kernels line
+TURNS = ("row_dma_2d", "sublane_roll", "dyn_vec_load")
+
+
 def mosaic_library(name: str, args: tuple):
     """The one PyTorch call that computes ``name``'s function at its
     program's input, and what it is, or None. A roll or a slice takes its
@@ -1148,16 +1188,19 @@ def mosaic_phase(dev, results: dict) -> None:
                 raise AssertionError(f"{name} differs from plain at {edge}")
         say("mosaic", f"{line}; exact at {len(edges)} edge inputs")
 
-    args = probe_mosaic3.inputs(dev)["row_dma_2d"]
-    call, what = mosaic_library("row_dma_2d", args)
-    turns = {"kernel": [], "library": []}
-    for who in ("kernel", "library", "library", "kernel", "kernel",
-                "library"):
-        fn = (lambda: mosaic3.row_dma_2d(*args)) if who == "kernel" else call
-        turns[who].append(cuda_ms(fn, f"row_dma_2d {who}"))
-    say("mosaic", f"row_dma_2d in turns with {what}: kernel " + ", ".join(
-        f"{ms:.6f}" for ms in turns["kernel"]) + " ms; library " + ", "
-        .join(f"{ms:.6f}" for ms in turns["library"]) + " ms")
+    for name in TURNS:
+        mod, program, _ = MOSAIC[name]
+        args = program.inputs(dev)[name]
+        call, what = mosaic_library(name, args)
+        turns = {"kernel": [], "library": []}
+        for who in ("kernel", "library", "library", "kernel", "kernel",
+                    "library"):
+            fn = ((lambda: getattr(mod, name)(*args)) if who == "kernel"
+                  else call)
+            turns[who].append(cuda_ms(fn, f"{name} {who}"))
+        say("mosaic", f"{name} in turns with {what}: kernel " + ", ".join(
+            f"{ms:.6f}" for ms in turns["kernel"]) + " ms; library " + ", "
+            .join(f"{ms:.6f}" for ms in turns["library"]) + " ms")
 
     costs = {name: host_us(lambda name=name, mod=MOSAIC[name][0], program=(
         MOSAIC[name][1].inputs(dev)[name]): getattr(mod, name)(*program))
@@ -1222,11 +1265,12 @@ def main(argv=None) -> int:
                               "tpujoin/kernels/merge_sort.py:307"}
            for name in ("sort_histogram", "sort_pass")},
         "merge_count": {"source": src + "merge_count.cu",
-                        "replaces": "tpujoin/kernels/merge_count.py:138"},
+                        "replaces": "tpujoin/kernels/merge_count.py:201, "
+                                    "tpujoin/kernels/merge_count.py:218"},
         "compact3": {"source": src + "compact.cu",
                      "replaces": "tpujoin/kernels/compact.py:217"},
-        "expand": {"source": src + "expand.cu",
-                   "replaces": "tpujoin/kernels/expand.py:111"},
+        "expand": {"source": src + "expand_pairs.cu",
+                   "replaces": "tpujoin/kernels/expand.py:164"},
         "expand_fill": {"source": src + "expand_pairs.cu",
                         "replaces": "tpujoin/kernels/expand_fill.py:208"},
         "expand_groups": {"source": src + "expand_pairs.cu",

@@ -13,6 +13,7 @@ import torch
 
 import tpujoin_torch
 from tpujoin_torch import oracle
+from tpujoin_torch.core import datagen
 from tpujoin_torch.ops import aggregate as agg
 from tpujoin_torch.ops import filter as flt
 from tpujoin_torch.kernels import (carry_scan, compact, expand, expand_fill,
@@ -73,24 +74,41 @@ def test_sort_kernels(n, dist):
            merge_sort.sort_pairs_plain(keys, ids))
 
 
-@pytest.mark.parametrize("n,m", [(4096, 4096), (0, 300), (1, 1), (1024, 1024),
-                                 (5000, 257), (100_003, 1_000_001)])
-@pytest.mark.parametrize("spread", [2, 0.5, "top"])
-def test_merge_count_kernel(n, m, spread):
-    """Keys in [1, spread * n) against [-10, hi + 1000), or ("top") keys at
-    the top of the i32 range on both sides, INT32_MAX included."""
-    rng = np.random.default_rng(n + m)
+def _count_keys(spread, n: int, m: int, rng):
+    """Sorted (build, probe) keys for test_merge_count_kernel."""
     if spread == "top":
         top = np.array([IMAX - 3, IMAX - 1, IMAX], np.int32)
-        b = np.sort(rng.choice(top, n)).astype(np.int32)
-        p = np.sort(rng.choice(np.append(top, IMAX - 2), m)).astype(np.int32)
-        b, p = torch.from_numpy(b).cuda(), torch.from_numpy(p).cuda()
-        _equal(merge_count.merge_count(b, p),
-               merge_count.merge_count_plain(b, p))
-        return
-    hi = max(int(spread * n), 2)
-    b = np.sort(rng.integers(1, hi, n)).astype(np.int32)
-    p = np.sort(rng.integers(-10, hi + 1000, m)).astype(np.int32)
+        b = rng.choice(top, n)
+        p = rng.choice(np.append(top, IMAX - 2), m)
+    elif spread == "extremes":    # INT32_MIN and INT32_MAX on both sides
+        b = rng.choice(np.array([IMIN, IMIN + 1, 0, IMAX - 1, IMAX]), n)
+        p = rng.choice(np.array([IMIN, -1, 0, IMAX - 2, IMAX]), m)
+    elif spread == "one_run":     # one key's build run over many tiles
+        b = np.where(rng.random(n) < 0.9, 50, rng.integers(1, 100, n))
+        p = np.where(rng.random(m) < 0.5, 50, rng.integers(0, 101, m))
+    elif spread == "zipf":        # zipf_skew's keys, Zipf(1.0) over 1..1e6
+        gen = torch.Generator().manual_seed(n + m)
+        b = datagen.zipf_keys(gen, n, 1, 10**6).numpy()
+        p = datagen.zipf_keys(gen, m, 1, 10**6).numpy()
+    else:
+        hi = max(int(spread * n), 2)
+        b = rng.integers(1, hi, n)
+        p = rng.integers(-10, hi + 1000, m)
+    return np.sort(b).astype(np.int32), np.sort(p).astype(np.int32)
+
+
+@pytest.mark.parametrize("n,m", [(4096, 4096), (0, 300), (1, 1), (1024, 1024),
+                                 (5000, 257), (100_003, 1_000_001),
+                                 (1_000_003, 300), (300, 1_000_003),
+                                 (1_000_003, 1_000_001), (0, 0), (7, 0)])
+@pytest.mark.parametrize("spread", [2, 0.5, "top", "extremes", "one_run",
+                                    "zipf"])
+def test_merge_count_kernel(n, m, spread):
+    """Keys in [1, spread * n) against [-10, hi + 1000); ("top") keys at
+    the top of the i32 range on both sides, INT32_MAX included; both i32
+    ends on both sides; one key's build run of ~0.9 n (1M copies at the
+    largest n) with its probe copies over many tiles; Zipf(1.0) keys."""
+    b, p = _count_keys(spread, n, m, np.random.default_rng(n + m))
     b, p = torch.from_numpy(b).cuda(), torch.from_numpy(p).cuda()
     _equal(merge_count.merge_count(b, p), merge_count.merge_count_plain(b, p))
 
@@ -112,23 +130,32 @@ def test_compact3_kernel(n, sel, k_cap_of):
            compact.compact3_plain(*cols, k_cap))
 
 
+_XTILE = expand_fill.TILE
+
+
 @pytest.mark.parametrize("k,max_count", [(1000, 1), (300, 20), (1, 5000),
                                          (3_000_000, 2)])
-def test_expand_kernel(k, max_count):
+@pytest.mark.parametrize("pad,extra,start", [
+    (77, 1000, 0), (3 * _XTILE + 5, 1000, 0), (3 * _XTILE + 5, _XTILE + 3, 0),
+    (0, _XTILE // 2 + 7, 0), (1, -100, 0), (77, 1000, 5)])
+def test_expand_kernel(k, max_count, pad, extra, start):
+    """Every slot up to capacity, those at or past the total included,
+    behind a zero tail as compaction leaves it (offs == total, lo == sid
+    == 0) of ``pad`` rows, longer than a tile at 3 * TILE + 5; capacity
+    total + ``extra``, so it ends mid-tile or below the total; ``start``
+    > 0 puts slots before the first row."""
     rng = np.random.default_rng(k)
     counts = rng.integers(1, max_count + 1, k).astype(np.int32)
-    offsets = (np.cumsum(counts) - counts).astype(np.int32)
+    offsets = (np.cumsum(counts) - counts + start).astype(np.int32)
     lo = np.sort(rng.integers(0, 10**6, k)).astype(np.int32)
     sid = rng.permutation(k).astype(np.int32)
-    total = int(counts.sum())
-    # a zero tail as compaction leaves it: offs == total, lo == sid == 0
-    pad = 77
+    total = int(counts.sum()) + start
     offsets = np.concatenate([offsets, np.full(pad, total, np.int32)])
     lo = np.concatenate([lo, np.zeros(pad, np.int32)])
     sid = np.concatenate([sid, np.zeros(pad, np.int32)])
     cols = [torch.from_numpy(c).cuda() for c in (offsets, lo, sid)]
-    _equal(expand.expand(*cols, total + 1000),
-           expand.expand_plain(*cols, total + 1000))
+    cap = max(total + extra, 0)
+    _equal(expand.expand(*cols, cap), expand.expand_plain(*cols, cap))
 
 
 def _rle_state(ngroups: int, seed: int):

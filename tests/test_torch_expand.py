@@ -50,6 +50,46 @@ def test_matches_jax_expand(k, max_count, seed, extra):
     np.testing.assert_array_equal(sout.numpy()[:total], exp_s)
 
 
+def _plain_ref(offsets, lo, sid, capacity):
+    """numpy's expand_plain on every slot up to capacity: the row
+    upper_bound - 1, clamped to [0, K - 1], and i32 wrapping arithmetic."""
+    t = np.arange(capacity, dtype=np.int64)
+    r = np.clip(np.searchsorted(offsets, t, "right") - 1, 0, len(offsets) - 1)
+    bpos = (lo[r].astype(np.int64) + t - offsets[r]).astype(np.uint32)
+    return bpos.astype(np.int32), sid[r]
+
+
+# (k, max_count, seed, zero-tail rows, capacity - total): the card
+# kernel's hazards at small sizes; its tiles hold 2048 slots
+TAILS = [(300, 20, 4, 2 * 2048 + 5, 777),   # a zero tail over two tiles
+         (1, 5000, 5, 3000, 2048 // 2 + 3),  # one giant run, a long tail
+         (2000, 3, 6, 1, 0),                 # capacity == total
+         (700, 9, 7, 5000, -1000)]           # capacity below the total
+
+
+@pytest.mark.parametrize("k,max_count,seed,pad,extra", TAILS)
+def test_zero_tail_and_ragged_capacity(k, max_count, seed, pad, extra):
+    """compact3's zero tail (offset == total, lo == sid == 0) longer than a
+    tile, and capacities that end mid-tile: against the JAX kernel below
+    the total, and against numpy on every slot up to capacity."""
+    counts, offsets, lo, sid, total = _make_case(
+        np.random.default_rng(seed), k, max_count, 10**6)
+    offsets = np.concatenate([offsets, np.full(pad, total, np.int32)])
+    lo = np.concatenate([lo, np.zeros(pad, np.int32)])
+    sid = np.concatenate([sid, np.zeros(pad, np.int32)])
+    cap = total + extra
+    bpos, sout = ex.expand(torch.from_numpy(offsets), torch.from_numpy(lo),
+                           torch.from_numpy(sid), cap)
+    want_b, want_s = _plain_ref(offsets, lo, sid, cap)
+    np.testing.assert_array_equal(bpos.numpy(), want_b)
+    np.testing.assert_array_equal(sout.numpy(), want_s)
+    jb, js = jax_expand(jnp.asarray(offsets), jnp.asarray(lo),
+                        jnp.asarray(sid), capacity=cap, interpret=True)
+    below = min(total, cap)
+    np.testing.assert_array_equal(bpos.numpy()[:below], np.asarray(jb)[:below])
+    np.testing.assert_array_equal(sout.numpy()[:below], np.asarray(js)[:below])
+
+
 def test_rejects_empty_rows_and_wide_capacity():
     z = torch.zeros(0, dtype=torch.int32)
     with pytest.raises(ValueError):

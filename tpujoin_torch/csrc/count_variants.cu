@@ -17,8 +17,8 @@
 //
 // Design: one block takes a tile of TILE probe keys, ITEMS (4) consecutive
 // keys a thread, so a 128-key probe piece is one warp and its skip decision
-// is warp-uniform. The block finds its build window with two searches, as
-// K2 does (merge_count.cu), from the JAX kernel's CHUNK-aligned start, and
+// is warp-uniform. The block finds its build window with two searches of
+// the whole build column, from the JAX kernel's CHUNK-aligned start, and
 // stages CHUNK (1024) build keys at a time in shared memory (4 KB), keys
 // past n read as INT32_MAX, the JAX kernel's pad. A chunk wholly below the
 // tile adds CHUNK, one wholly above is skipped (the chunk-level skip every

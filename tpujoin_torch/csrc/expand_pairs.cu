@@ -1,13 +1,18 @@
-// K5 and K7: pair expansion from the factorized (RLE) join result straight
-// into the (build id, probe id) pair columns.
+// K4, K5 and K7: pair expansion from the factorized (RLE) join result
+// into the (build position or id, probe id) pair columns.
 //
 //   expand_fill_kernel  slot t in run r and group g ->
 //                       (src[glo[g] + (t - goff[g]) mod gnb[g]], rsid[r])
+//                       (K5), or in its run mode slot t in row r ->
+//                       (lo[r] + t - offs[r], sid[r]) (K4)
 //   expand_runs_kernel  slot t in run r -> (src[lo[r] + t - offs[r]], sid[r])
 //
-// Both write -1 to both columns at t >= total.
+// K5 and K7 write -1 to both columns at t >= total. K4 has no total: a slot
+// at or past the last row's offset takes the last row, as upper_bound - 1
+// clamped to the rows gives it.
 //
-// Replaces tpujoin/kernels/expand_fill.py: `expand_fill` (`_kernel`),
+// Replaces tpujoin/kernels/expand.py: `expand` (`_kernel`, K4),
+// tpujoin/kernels/expand_fill.py: `expand_fill` (`_kernel`),
 // tpujoin/kernels/expand_groups.py: `expand_groups` (`_kernel`; the same
 // function as expand_fill, so it launches expand_fill_kernel),
 // tpujoin/kernels/expand_runs.py: `expand_runs` (`_kernel`), and
@@ -16,7 +21,8 @@
 //
 // What bounds them on the H100: the bytes written, 8 B per slot (8 GB for
 // the ~1e9 slots of the high-selectivity join, ~2.4 ms at 3.35 TB/s). The
-// run and group metadata and the source ids read are ~0.1 GB there.
+// run and group metadata and the source ids read are ~0.1 GB there. K4's
+// slots are the low-selectivity join's pairs (~1e7, 0.08 GB written).
 //
 // K5 is two launches. A partition pass, one thread per tile boundary,
 // finds each TILE-slot tile's first run and first group by a binary search
@@ -38,9 +44,19 @@
 // fit envelope stood in for that gather. A source index outside [0, n)
 // reads -1, as the TPU kernels' -1 padding of the source does.
 //
+// K4 is the same two launches in the run mode (RUNS_POS): the window holds
+// each row's offset, probe id and lo - offset, and the walk writes
+// lo - offset + t beside the probe id; no groups. Its rows are compact3's:
+// strictly increasing offsets below the total, then a zero tail (offset ==
+// total, lo == sid == 0) that can be longer than a tile. Only the slots
+// below the last row's offset are walked, so the tail never enters a
+// window; the slots from it on take the last row directly. One tile a
+// block: K4's slots are few (~1e7), and more blocks hide more latency. The
+// TPU kernel's one-hot and masked-max reductions stood in for gathers.
+//
 // K7's runs kernel keeps the simple design: a block finds the runs of its
 // first and last slot, and each thread runs upper_bound - 1 over that
-// window, as K4 does.
+// window.
 #include "common.cuh"
 
 namespace {
@@ -50,6 +66,7 @@ constexpr int ITEMS = 4;                    // consecutive slots per thread
 constexpr int SLOTS = THREADS * ITEMS;      // slots per block at a time
 constexpr int TILE = 2048;                  // slots of one K5 window
 constexpr int BLOCK_TILES = 16;             // tiles a K5 block takes
+constexpr int POS_BLOCK_TILES = 1;          // tiles a K4 block takes
 constexpr int PART_THREADS = 256;
 static_assert(TILE % SLOTS == 0, "a tile is whole sweeps of a block");
 
@@ -102,30 +119,39 @@ partition_kernel(const int32_t* __restrict__ roff, int64_t nruns,
                              (int64_t)0);
 }
 
-// What expand_fill_kernel computes of the build column.
+// What expand_fill_kernel computes of the runs: nothing (the probe column
+// -1), the probe column (K5), or it and the build position (K4).
+enum RunPhase { RUNS_NONE = 0, RUNS_SID = 1, RUNS_POS = 2 };
+// What it computes of the build column from the groups.
 enum GroupPhase { GROUPS_NONE = 0, GROUPS_INDEX = 1, GROUPS_GATHER = 2 };
 
 // Words of shared memory a window array takes: TILE + 1 entries and the
 // sentinel after the last.
 constexpr int WINDOW = TILE + 2;
 
-// The words of a window: the runs' two arrays where the run walk runs,
-// the groups' three where the group walk does.
-__host__ __device__ constexpr int window_words(bool runs, int groups) {
-  return ((runs ? 2 : 0) + (groups ? 3 : 0)) * WINDOW;
+// The words of a window: the runs' arrays where the run walk runs (two,
+// three with the build position), the groups' three where the group walk
+// does.
+__host__ __device__ constexpr int run_words(int runs) {
+  return (runs == RUNS_POS ? 3 : runs == RUNS_SID ? 2 : 0) * WINDOW;
 }
-static_assert(window_words(true, GROUPS_GATHER) * 4 <= 48 * 1024,
+__host__ __device__ constexpr int window_words(int runs, int groups) {
+  return run_words(runs) + (groups ? 3 : 0) * WINDOW;
+}
+static_assert(window_words(RUNS_SID, GROUPS_GATHER) * 4 <= 48 * 1024,
               "the window fits the default shared-memory limit");
 
-// RUNS: the run walk and the probe column (else -1); GROUPS: what of the
-// build column runs (GROUPS_GATHER is K5). Each block takes `tiles` tiles
-// of `tile` slots (tile divides TILE), one at a time; the partition
-// has an entry for every tile boundary up to the last tile with a slot
-// below total.
-template <bool RUNS, int GROUPS>
+// RUNS: what the run walk computes; GROUPS: what of the build column runs
+// (RUNS_SID with GROUPS_GATHER is K5, RUNS_POS with GROUPS_NONE K4). Each
+// block takes `tiles` tiles of `tile` slots (tile divides TILE), one at a
+// time; the partition has an entry for every tile boundary up to the last
+// tile with a slot below the end of the walk: total, or with RUNS_POS the
+// last of the `nruns` rows' offset.
+template <int RUNS, int GROUPS>
 __global__ void __launch_bounds__(THREADS)
 expand_fill_kernel(const int32_t* __restrict__ roff,
                    const int32_t* __restrict__ rsid,
+                   const int32_t* __restrict__ rlo, int64_t nruns,
                    const int32_t* __restrict__ goff,
                    const int32_t* __restrict__ glo,
                    const int32_t* __restrict__ gnb, int64_t ngroups,
@@ -134,27 +160,45 @@ expand_fill_kernel(const int32_t* __restrict__ roff,
                    const int32_t* __restrict__ src, int64_t n, int64_t total,
                    int32_t* __restrict__ r_out, int32_t* __restrict__ s_out,
                    int64_t capacity, int64_t tiles, int tile) {
-  // the window: runs (offset, probe id), then groups (offset, slice start,
-  // period), each entry j the j-th run or group from the tile's first
+  // the window: runs (offset, probe id, with RUNS_POS lo - offset), then
+  // groups (offset, slice start, period), each entry j the j-th run or
+  // group from the tile's first
   __shared__ int32_t window[window_words(RUNS, GROUPS)];
   int32_t* w_roff = window;
   int32_t* w_rsid = w_roff + WINDOW;
-  int32_t* w_goff = window + (RUNS ? 2 * WINDOW : 0);
+  int32_t* w_rbase = w_rsid + WINDOW;
+  int32_t* w_goff = window + run_words(RUNS);
   int32_t* w_glo = w_goff + WINDOW;
   int32_t* w_gnb = w_glo + WINDOW;
   const bool groups = GROUPS != GROUPS_NONE && ngroups > 0;
+  // the slots below `end` are walked; the others take the tail: -1, or
+  // with RUNS_POS the last row
+  int64_t end = total;
+  uint32_t tail_base = 0;
+  int32_t tail_sid = -1;
+  if (RUNS == RUNS_POS) {
+    end = roff[nruns - 1];
+    tail_base = (uint32_t)rlo[nruns - 1] - (uint32_t)roff[nruns - 1];
+    tail_sid = rsid[nruns - 1];
+  }
   const int64_t block_end = min((blockIdx.x + 1) * tiles * tile, capacity);
   for (int64_t part = blockIdx.x * tiles; part * tile < block_end; ++part) {
     const int64_t first = part * tile;
     int nr = 0, ng = 0;
-    if (first < total) {
-      if (RUNS) {
+    if (first < end) {
+      if (RUNS != RUNS_NONE) {
         const int32_t lo = run_part[part];
         nr = min(run_part[part + 1] - lo + 1, tile + 1);
         for (int j = threadIdx.x; j < nr; j += THREADS) {
           const int32_t r = lo + j;        // -1: before the first run
           w_roff[j] = r < 0 ? INT32_MIN : roff[r];
-          w_rsid[j] = r < 0 ? -1 : rsid[r];
+          if (RUNS == RUNS_SID) {
+            w_rsid[j] = r < 0 ? -1 : rsid[r];
+          } else {                         // K4 clamps to the first row
+            const int32_t q = max(r, 0);
+            w_rsid[j] = rsid[q];
+            w_rbase[j] = (int32_t)((uint32_t)rlo[q] - (uint32_t)roff[q]);
+          }
         }
         if (threadIdx.x == 0) w_roff[nr] = INT32_MAX;
       }
@@ -175,10 +219,13 @@ expand_fill_kernel(const int32_t* __restrict__ roff,
          t0 < tile_end; t0 += SLOTS) {
       int32_t rv[ITEMS], sv[ITEMS];
 #pragma unroll
-      for (int i = 0; i < ITEMS; ++i) rv[i] = sv[i] = -1;
-      // the slots below total: t0 .. t0 + real - 1, all below 2^31
-      const int real =
-          (int)max(min((int64_t)ITEMS, total - t0), (int64_t)0);
+      for (int i = 0; i < ITEMS; ++i) {
+        rv[i] = RUNS == RUNS_POS ? (int32_t)(tail_base + (uint32_t)(t0 + i))
+                                 : -1;
+        sv[i] = tail_sid;
+      }
+      // the slots below end: t0 .. t0 + real - 1, all below 2^31
+      const int real = (int)max(min((int64_t)ITEMS, end - t0), (int64_t)0);
       const int32_t s0 = (int32_t)t0;
       if (groups && real > 0) {
         int g = max(upper_bound_smem(w_goff, ng, s0) - 1, 0);
@@ -203,10 +250,11 @@ expand_fill_kernel(const int32_t* __restrict__ roff,
           phase = phase + 1 == nb ? 0 : phase + 1;
         }
       }
-      if (RUNS && real > 0) {
+      if (RUNS != RUNS_NONE && real > 0) {
         // entry 0 starts at or before the tile, the sentinel after it
         int j = upper_bound_smem(w_roff, nr, s0) - 1;
         int32_t sid = w_rsid[j], next = w_roff[j + 1];
+        uint32_t base = RUNS == RUNS_POS ? (uint32_t)w_rbase[j] : 0;
 #pragma unroll
         for (int i = 0; i < ITEMS; ++i) {
           if (i >= real) break;
@@ -214,8 +262,10 @@ expand_fill_kernel(const int32_t* __restrict__ roff,
             ++j;
             sid = w_rsid[j];
             next = w_roff[j + 1];
+            if (RUNS == RUNS_POS) base = (uint32_t)w_rbase[j];
           }
           sv[i] = sid;
+          if (RUNS == RUNS_POS) rv[i] = (int32_t)(base + (uint32_t)(s0 + i));
         }
       }
       store(r_out, s_out, t0, capacity, rv, sv);
@@ -232,14 +282,16 @@ int gcd(int64_t a, int64_t b) {
 // The partition pass, then the fill kernel with `per_block` slots a block.
 // `parts` holds two columns of `nparts` entries, the runs' then the
 // groups'; it needs one entry per tile of the slots below min(total,
-// capacity), and one more.
-template <bool RUNS, int GROUPS>
-int launch_fill(const int32_t* roff, const int32_t* rsid, int64_t nruns,
-                const int32_t* goff, const int32_t* glo, const int32_t* gnb,
-                int64_t ngroups, const int32_t* src, int64_t n,
-                int64_t total, int32_t* r_out, int32_t* s_out,
-                int64_t capacity, int32_t* parts, int64_t nparts,
-                int64_t per_block, cudaStream_t stream) {
+// capacity), and one more. With RUNS_POS the kernel reads its end of the
+// walk from the rows, and total is capacity.
+template <int RUNS, int GROUPS>
+int launch_fill(const int32_t* roff, const int32_t* rsid,
+                const int32_t* rlo, int64_t nruns, const int32_t* goff,
+                const int32_t* glo, const int32_t* gnb, int64_t ngroups,
+                const int32_t* src, int64_t n, int64_t total,
+                int32_t* r_out, int32_t* s_out, int64_t capacity,
+                int32_t* parts, int64_t nparts, int64_t per_block,
+                cudaStream_t stream) {
   const int tile = gcd(per_block, TILE);
   const int64_t valid = min(total, capacity);
   const int64_t need = (valid + tile - 1) / tile + 1;
@@ -249,15 +301,16 @@ int launch_fill(const int32_t* roff, const int32_t* rsid, int64_t nruns,
   if (valid > 0) {
     partition_kernel<<<(unsigned)((need + PART_THREADS - 1) / PART_THREADS),
                        PART_THREADS, 0, stream>>>(
-        roff, RUNS ? nruns : 0, goff, GROUPS ? ngroups : 0, tile, need,
-        run_part, grp_part);
+        roff, RUNS != RUNS_NONE ? nruns : 0, goff, GROUPS ? ngroups : 0,
+        tile, need, run_part, grp_part);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const unsigned grid = (unsigned)((capacity + per_block - 1) / per_block);
   expand_fill_kernel<RUNS, GROUPS><<<grid, THREADS, 0, stream>>>(
-      roff, rsid, goff, glo, gnb, GROUPS ? ngroups : 0, run_part, grp_part,
-      src, n, total, r_out, s_out, capacity, per_block / tile, tile);
+      roff, rsid, rlo, nruns, goff, glo, gnb, GROUPS ? ngroups : 0, run_part,
+      grp_part, src, n, total, r_out, s_out, capacity, per_block / tile,
+      tile);
   return (int)cudaGetLastError();
 }
 
@@ -311,9 +364,25 @@ extern "C" int tj_expand_fill(const int32_t* roff, const int32_t* rsid,
                               int64_t capacity, int32_t* parts,
                               int64_t nparts, cudaStream_t stream) {
   if (capacity <= 0) return 0;
-  return launch_fill<true, GROUPS_GATHER>(
-      roff, rsid, nruns, goff, glo, gnb, ngroups, src, n, total, r_out,
-      s_out, capacity, parts, nparts, BLOCK_TILES * TILE, stream);
+  return launch_fill<RUNS_SID, GROUPS_GATHER>(
+      roff, rsid, nullptr, nruns, goff, glo, gnb, ngroups, src, n, total,
+      r_out, s_out, capacity, parts, nparts, BLOCK_TILES * TILE, stream);
+}
+
+// K4. Caller guarantees: 1 <= k <= len of each of offs, lo and sid, the
+// offsets below offs[k - 1] strictly increasing (compact3's rows: a
+// non-decreasing column that repeats only its last value), outputs 16-byte
+// aligned with capacity slots, 0 <= capacity < 2^31; `parts` 2 x nparts
+// i32 scratch, nparts at least ceil(capacity / TILE) + 1.
+extern "C" int tj_expand(const int32_t* offs, const int32_t* lo,
+                         const int32_t* sid, int64_t k, int32_t* bpos,
+                         int32_t* sid_out, int64_t capacity, int32_t* parts,
+                         int64_t nparts, cudaStream_t stream) {
+  if (capacity <= 0) return 0;
+  if (k <= 0) return (int)cudaErrorInvalidValue;
+  return launch_fill<RUNS_POS, GROUPS_NONE>(
+      offs, sid, lo, k, nullptr, nullptr, nullptr, 0, nullptr, 0, capacity,
+      bpos, sid_out, capacity, parts, nparts, POS_BLOCK_TILES * TILE, stream);
 }
 
 // expand_fill_v: K5's kernels with `step` slots a block and the phases of
@@ -334,14 +403,15 @@ extern "C" int tj_expand_fill_v(const int32_t* roff, const int32_t* rsid,
   if (capacity <= 0) return 0;
   if (step <= 0 || step % SLOTS != 0) return (int)cudaErrorInvalidValue;
 #define TJ_LAUNCH(RUNS, GROUPS)                                            \
-  return launch_fill<RUNS, GROUPS>(roff, rsid, nruns, goff, glo, gnb,     \
-                                   ngroups, src, n, total, r_out, s_out,  \
-                                   capacity, parts, nparts, step, stream)
+  return launch_fill<RUNS, GROUPS>(roff, rsid, nullptr, nruns, goff, glo, \
+                                   gnb, ngroups, src, n, total, r_out,    \
+                                   s_out, capacity, parts, nparts, step,  \
+                                   stream)
   switch (variant) {
-    case 0: TJ_LAUNCH(true, GROUPS_GATHER);
-    case 1: TJ_LAUNCH(false, GROUPS_GATHER);
-    case 2: TJ_LAUNCH(true, GROUPS_NONE);
-    case 3: TJ_LAUNCH(true, GROUPS_INDEX);
+    case 0: TJ_LAUNCH(RUNS_SID, GROUPS_GATHER);
+    case 1: TJ_LAUNCH(RUNS_NONE, GROUPS_GATHER);
+    case 2: TJ_LAUNCH(RUNS_SID, GROUPS_NONE);
+    case 3: TJ_LAUNCH(RUNS_SID, GROUPS_INDEX);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef TJ_LAUNCH

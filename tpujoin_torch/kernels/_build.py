@@ -33,11 +33,11 @@ P, I64 = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     "tj_sort_histogram": (P, I64, P, P),
     "tj_sort_pass": (P, P, P, P, I64, I64, P, P, I64, P),
-    "tj_merge_count": (P, I64, P, I64, P, P, P),
+    "tj_merge_count": (P, I64, P, I64, P, P, P, I64, P),
     "tj_compact_count": (P, I64, I64, P, P),
     "tj_compact_ids": (P, I64, I64, P, P, P, I64, P),
     "tj_compact_cols": (P, I64, I64, P, P, I64, P, P, I64, P),
-    "tj_expand": (P, P, P, I64, P, P, I64, P),
+    "tj_expand": (P, P, P, I64, P, P, I64, P, I64, P),
     "tj_expand_fill": (P, P, I64, P, P, P, I64, P, I64, I64, P, P, I64, P, I64,
                        P),
     "tj_expand_runs": (P, P, P, I64, P, I64, I64, P, P, I64, P),

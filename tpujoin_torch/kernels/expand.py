@@ -1,4 +1,5 @@
-"""Expansion: K4 (csrc/expand.cu), the materialize phase's pair step.
+"""Expansion: K4 (csrc/expand_pairs.cu, K5's kernels in their run mode),
+the materialize phase's pair step.
 
 The port of tpujoin/kernels/expand.py: for each output slot t < capacity,
 the compacted row r with offsets[r] <= t < offsets[r + 1], and from it
@@ -6,12 +7,19 @@ bpos = lo[r] + t - offsets[r] and sid_out = sid[r]. Slots at or past the
 true total read the last row and carry no pair; the caller masks them.
 A CUDA tensor goes through the kernel, a CPU tensor through
 :func:`expand_plain`; anything else raises.
+
+On the card one call is two launches: K5's partition pass, which finds
+each tile's first row, into a scratch the wrapper allocates, and K5's fill
+kernel walking the rows from a shared-memory window. The slots from the
+last row's offset on take the last row directly, so compact3's zero tail
+(rows with offset == total) is never walked.
 """
 from __future__ import annotations
 
 import torch
 
 from tpujoin_torch.kernels import _build
+from tpujoin_torch.kernels.expand_fill import partition_scratch
 
 LAUNCHES = 0
 
@@ -28,7 +36,8 @@ def expand_plain(offsets: torch.Tensor, lo: torch.Tensor, sid: torch.Tensor,
 def expand(offsets: torch.Tensor, lo: torch.Tensor, sid: torch.Tensor,
            capacity: int):
     """(bpos, sid_out), each [capacity] int32. ``offsets`` is the exclusive
-    cumsum of the compacted counts (non-decreasing), ``lo`` the rows' build
+    cumsum of the compacted counts: strictly increasing below its last
+    value, which only a zero tail repeats. ``lo`` holds the rows' build
     lower bounds, ``sid`` their probe ids."""
     global LAUNCHES
     k = offsets.shape[0]
@@ -42,8 +51,9 @@ def expand(offsets: torch.Tensor, lo: torch.Tensor, sid: torch.Tensor,
     sid_out = torch.empty_like(bpos)
     _build.check_cuda_i32(offsets, lo, sid, bpos, sid_out)
     if capacity:
+        parts, rows = partition_scratch(capacity, capacity, bpos.device)
         _build.call("tj_expand", bpos.device, offsets.data_ptr(),
                     lo.data_ptr(), sid.data_ptr(), k, bpos.data_ptr(),
-                    sid_out.data_ptr(), capacity)
+                    sid_out.data_ptr(), capacity, parts.data_ptr(), rows)
         LAUNCHES += 1
     return bpos, sid_out

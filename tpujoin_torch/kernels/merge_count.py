@@ -4,6 +4,10 @@ The port of tpujoin/kernels/merge_count.py: for every sorted probe key, its
 lower bound ``lo`` in the sorted build keys and its number of equal build
 keys ``cnt``, both int32. A CUDA tensor goes through the kernel, a CPU
 tensor through :func:`merge_count_plain`; anything else raises.
+
+On the card one call is two launches: a co-rank pass that cuts the merged
+order of the two columns into TILE-key tiles, into a scratch the wrapper
+allocates, and the count kernel, which merges each tile in shared memory.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import torch
 from tpujoin_torch.kernels import _build
 
 LAUNCHES = 0
+TILE = 4096             # path elements of one tile (TILE in the .cu)
 
 
 def merge_count_plain(sorted_build_keys: torch.Tensor,
@@ -33,10 +38,14 @@ def merge_count(sorted_build_keys: torch.Tensor,
         return merge_count_plain(b, p)
     lo, cnt = torch.empty_like(p), torch.empty_like(p)
     _build.check_cuda_i32(b, p, lo, cnt)
-    if b.shape[0] >= 2**31:
+    n, m = b.shape[0], p.shape[0]
+    if n >= 2**31:
         raise ValueError("merge_count: more than 2^31 - 1 build keys")
-    if p.shape[0]:
-        _build.call("tj_merge_count", p.device, b.data_ptr(), b.shape[0],
-                    p.data_ptr(), p.shape[0], lo.data_ptr(), cnt.data_ptr())
+    if m:
+        rows = -(-(n + m) // TILE) + 1     # one per tile boundary
+        parts = torch.empty(2 * rows, dtype=torch.int32, device=p.device)
+        _build.call("tj_merge_count", p.device, b.data_ptr(), n,
+                    p.data_ptr(), m, lo.data_ptr(), cnt.data_ptr(),
+                    parts.data_ptr(), rows)
         LAUNCHES += 1
     return lo, cnt
