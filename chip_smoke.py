@@ -31,17 +31,39 @@ Phases, one line each (details on stderr):
   4. runs     a 4096 x 4096 join with ~16 matches per row through
               merge_join on the card: the runs path (expand_runs), checked
               against the oracle and the CPU path;
-  5. slices   ref_low_selectivity (100M x 100M at --scale 1.0) and
-              ref_high_selectivity (10M x 10M, ~1e9 pairs, full size)
-              through tpujoin_torch.bench, every pair checked (the native
-              oracle; for the dense slice the RLE oracle and window
-              checksums of every slot), and each path's kernels' launch
-              counters above 0 for that run, from 0 just before it;
+  5. matrix   tpujoin_torch.bench's default matrix at full size through
+              run_matrix, the function its main runs: v2 on
+              ref_low_selectivity (100M x 100M) and ref_high_selectivity
+              (10M x 10M, ~1e9 pairs), v1 on ref_low_selectivity, v1's
+              factorized result on ref_high_selectivity, v2 on zipf_skew,
+              then the multi-column join with filter pushdown at 100M rows
+              a side; every entry verified (the native oracle on every
+              pair; for the dense entries the RLE oracle, and for v2's
+              window checksums of every slot), each entry's kernels'
+              launch counters above 0 for its run, from 0 just before it;
+              then the summary line: it parses, fits 1900 bytes and holds
+              six verified configs;
+     v1       tpujoin_torch.hash_join on the card from numpy keys, a dense
+              join (262,144 x 262,144, ~2^24 pairs) whose materialize
+              fills its row markers with fill_forward, against the oracle
+              and the CPU path, and fill_forward on that marker column
+              against its plain version; then the bench's v1 dense cell on
+              ref_high_selectivity (4 probe chunks, every pair checked by
+              the multiset checksum);
+     split    semi_join, anti_join and left_outer_join on the card from
+              numpy keys at ref_low_selectivity's full width, against
+              torch.isin and a pair count on the card (compact_ids
+              launched), then at 1/100 of it against the CPU path;
+     tables   hash_join_multi and join_with_pushdown at 2M rows a side
+              against the CPU path (compact3 launched in the pushdown),
+              join_tables for each how on one and two keys against the CPU
+              path, and an npz and a raw-directory round trip joined after
+              loading;
   6. k6       K6a compact_ids and K6b compact_cols against their plain
               versions on the filter's and the aggregate's own 100M-row
               inputs, bitwise and timed, with torch.nonzero beside K6a;
-  7. ops      tpujoin_torch.bench's filter and aggregate at 100M rows,
-              verified (numpy; the native group count and a numpy
+  7. ops      tpujoin_torch.bench's filter at 100M rows and aggregate at
+              10M (cut from 100M to hold the wall), verified (numpy; the native group count and a numpy
               recompute of every group's sum, min and max), an 8192 x 8192
               nested-loop join on the card from numpy keys against the
               oracle and the CPU path, and filter_table, group_by_count and
@@ -108,6 +130,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -116,6 +139,7 @@ import torch
 import tpujoin_torch
 from tpujoin_torch import bench, merge_join, oracle
 from tpujoin_torch.core import datagen
+from tpujoin_torch.core import io as table_io
 from tpujoin_torch.kernels import (_build, carry_scan, compact, expand,
                                    expand_fill, expand_groups, expand_runs,
                                    fill_phases, flat_roll, forward_fill,
@@ -124,6 +148,7 @@ from tpujoin_torch.kernels import (_build, carry_scan, compact, expand,
                                    select_chain, shift_loop, slab_count,
                                    smem_gather, stream)
 from tpujoin_torch.ops import aggregate as agg
+from tpujoin_torch.ops import hash_join as hj
 from tpujoin_torch.ops import merge_join as mj
 from tpujoin_torch.ops.hash_join import build
 from tpujoin_torch.probes import (bench_mat2, count_variants, fill_variants,
@@ -136,6 +161,10 @@ from tpujoin_torch.utils.shapes import round_up
 
 IMAX = 2**31 - 1
 OP_ROWS = 100_000_000        # the filter's and the aggregate's rows
+# the ops phase's verified aggregate, cut from OP_ROWS to hold the wall as
+# the matrix joined the run (its host check took 43 s at 100M rows); K6a
+# and K6b still run on the 100M-row aggregate inputs in the k6 phase
+AGG_ROWS = 10_000_000
 PRIMITIVE_ROWS = 100_000_000  # bench/primitives.py's N
 CHUNK = 1 << 26              # elements per step of the kernel/plain compare
 HOLD_MS = 10.0               # the device-side wait before each timed run
@@ -448,6 +477,13 @@ def check_count(bsk, psk, what: str, results: dict | None = None) -> None:
                        results)
     if results is not None:
         bound(results, name, 4 * n + 12 * m, n + m)
+        lo, cnt = merge_count.merge_count(bsk, psk)
+        if max_abs_err((lo, cnt), v1_count(bsk, psk)):
+            raise AssertionError("merge_count differs from v1's two "
+                                 "torch.searchsorted")
+        del lo, cnt
+        results[name]["library_ms"] = cuda_ms(
+            lambda: v1_count(bsk, psk), "two torch.searchsorted")
     split = kernel_ms(lambda: merge_count.merge_count(bsk, psk),
                       ("corank_kernel", "merge_count_kernel"))
     floor = (4 * n + 12 * m) / hbm_bytes_per_s() * 1e3
@@ -455,6 +491,14 @@ def check_count(bsk, psk, what: str, results: dict | None = None) -> None:
         f"{split['corank_kernel']:.6f} ms, count kernel "
         f"{split['merge_count_kernel']:.6f} ms (torch.profiler, least of "
         f"5), whole call {got['ms']:.6f} ms (events); bound {floor:.6f} ms")
+
+
+def v1_count(bsk, psk):
+    """(lo, cnt) of the probe keys in the sorted build keys by two
+    torch.searchsorted, the v1 engine's count (tpujoin_torch/ops/
+    hash_join.py:probe_count): merge_count's library call."""
+    lo = torch.searchsorted(bsk, psk, out_int32=True)
+    return lo, torch.searchsorted(bsk, psk, right=True, out_int32=True) - lo
 
 
 def same_pairs(r, s, r2, s2) -> bool:
@@ -657,30 +701,64 @@ def runs_phase(dev, results: dict) -> None:
         f"launch(es)")
 
 
-def slice_phase(dev, cfg, results: dict, path: tuple, record: tuple):
-    """``cfg`` through tpujoin_torch.bench with every pair verified, the
-    counters from 0 just before; every kernel of ``path`` must have
-    launched, and those of ``record`` keep their counts."""
-    zero_counters()
-    out = bench.bench_join(cfg, verify=True, device=dev)
-    launches = read_counters()
-    print(json.dumps(out), flush=True)
-    say("slice", f"{cfg.name} {cfg.build_rows} x {cfg.probe_rows}: "
-        f"build {out['build_seconds']:.6f} s, count "
-        f"{out['count_seconds']:.6f} s, materialize "
-        f"{out['materialize_seconds']:.6f} s, "
-        f"{out['probe_rows_per_sec']:.0f} probe rows/s, "
-        f"{out['result_rows']} pairs, launches {launches}")
-    if out["verified"] is not True:
-        raise AssertionError(f"{cfg.name}: result fails the oracle")
-    if not out["result_rows"] > 0:
-        raise AssertionError(f"{cfg.name}: no pairs")
-    for name in path:
-        if launches[name] <= 0:
-            raise AssertionError(f"{name}: no launch during {cfg.name}")
-    for name in record:
-        results[name]["launches"] = launches[name]
-    return out
+# each matrix entry's kernels, which must launch in its run, and those
+# whose launches go into the kernels line (from the entry that runs them
+# on a reference config)
+MATRIX_PATHS = {
+    "ref_low_selectivity": ("sort_histogram", "sort_pass", "merge_count",
+                            "compact3", "expand"),
+    "ref_high_selectivity": ("sort_histogram", "sort_pass", "merge_count",
+                             "expand_fill"),
+    "ref_low_selectivity[v1]": ("sort_histogram", "sort_pass"),
+    "ref_high_selectivity[v1-rle]": ("sort_histogram", "sort_pass"),
+    "zipf_skew": ("sort_histogram", "sort_pass", "merge_count"),
+    "multi_join": ("sort_histogram", "sort_pass", "merge_count", "compact3",
+                   "expand", "compact_ids"),
+}
+MATRIX_RECORD = {"ref_low_selectivity": MATRIX_PATHS["ref_low_selectivity"],
+                 "ref_high_selectivity": ("expand_fill",)}
+
+
+def matrix_phase(dev, results: dict, scale: float) -> None:
+    """tpujoin_torch.bench's default matrix through run_matrix, the
+    function its main runs, every entry verified, with the counters from 0
+    just before each entry; each entry's kernels must launch, the dense
+    v2 entry materializes every pair on fill and checks each; then the
+    summary line: it parses, fits 1900 bytes and holds six verified
+    configs."""
+    def run(key, fn):
+        t0 = time.perf_counter()
+        out, launches = _counted(fn, MATRIX_PATHS[key], key)
+        if out["verified"] is not True:
+            raise AssertionError(f"{key}: result fails its check")
+        if not out["result_rows"] > 0:
+            raise AssertionError(f"{key}: no pairs")
+        if key == "ref_high_selectivity":
+            check_dense_slice(out)
+        for name in MATRIX_RECORD.get(key, ()):
+            results[name]["launches"] = launches[name]
+        phases = ", ".join(f"{k} {out[k]:.6f} s" for k in (
+            "build_seconds", "count_seconds", "materialize_seconds",
+            "rle_result_seconds", "pair_materialize_seconds",
+            "join_seconds", "pushdown_seconds") if k in out)
+        rate = out.get("probe_rows_per_sec", out.get("rows_per_sec"))
+        say("matrix", f"{key}: {phases}; {rate:.0f} rows/s, "
+            f"{out['result_rows']} pairs, verified; "
+            f"{time.perf_counter() - t0:.3f} s with its checks; launches "
+            + ", ".join(f"{k} {launches[k]}" for k in MATRIX_PATHS[key]))
+        return out
+
+    completed = {}
+    bench.run_matrix(bench.matrix_entries(), completed, verify=True,
+                     scale=scale, multi_join=True, device=dev, run=run)
+    line = bench._summary_line(completed, True)
+    summary = json.loads(line)
+    if (len(line) > 1900 or summary["metric"] != "hash_join_probe_rows_per_sec"
+            or summary["verified"] is not True
+            or len(summary["configs"]) != 6):
+        raise AssertionError(f"summary line: {line}")
+    say("matrix", f"summary line: {len(line)} bytes, "
+        f"{len(summary['configs'])} configs, verified")
 
 
 def _counted(fn, path: tuple, what: str):
@@ -696,8 +774,8 @@ def _counted(fn, path: tuple, what: str):
 
 
 def ops_phase(dev, results: dict) -> None:
-    """The filter and the aggregate through tpujoin_torch.bench at OP_ROWS
-    rows, verified; the nested-loop join and the other new entry points
+    """The filter through tpujoin_torch.bench at OP_ROWS rows and the
+    aggregate at AGG_ROWS, verified; the nested-loop join and the other new entry points
     on the card by default (numpy input), against the oracle and the CPU
     path."""
     out, launches = _counted(
@@ -712,14 +790,15 @@ def ops_phase(dev, results: dict) -> None:
 
     t0 = time.perf_counter()
     out, launches = _counted(
-        lambda: bench.bench_aggregate(OP_ROWS, OP_ROWS // 10, verify=True,
-                                      device=dev),
+        lambda: bench.bench_aggregate(AGG_ROWS, AGG_ROWS // 10,
+                                      verify=True, device=dev),
         ("compact_ids", "compact_cols"), "the aggregate")
     print(json.dumps(out), flush=True)
     if out["verified"] is not True:
         raise AssertionError("aggregate: result fails its check")
     results["compact_cols"]["launches"] = launches["compact_cols"]
-    say("ops", f"aggregate {OP_ROWS} rows, {out['groups']} groups: count + "
+    say("ops", f"aggregate {AGG_ROWS} rows (cut from {OP_ROWS} to hold "
+        f"the wall), {out['groups']} groups: count + "
         f"materialize {out['total_seconds']:.6f} s, values "
         f"{out['agg_values_seconds']:.6f} s, verified; "
         f"{time.perf_counter() - t0:.3f} s with the host check; "
@@ -756,6 +835,221 @@ def ops_phase(dev, results: dict) -> None:
             raise AssertionError(f"{name} on the card differs from the CPU")
         say("ops", f"{name} 65536 rows on the card by default: equal to the "
             f"CPU path")
+
+
+V1_ROWS = 1 << 18            # a side of the v1 phase's dense join
+V1_KEYS = 4096               # its key domain: ~2^24 pairs, capacity >= m
+
+
+def v1_phase(dev, results: dict) -> None:
+    """The v1 engine: tpujoin_torch.hash_join on the card by default from
+    numpy keys, a dense join (capacity >= probe rows), so its materialize
+    fills the row markers with fill_forward; against the oracle and the
+    CPU path, and fill_forward on that marker column against its plain
+    version. Then the bench's v1 dense cell on ref_high_selectivity (4
+    probe chunks, every pair checked by the multiset checksum)."""
+    rng = np.random.default_rng(4)
+    bk = rng.integers(1, V1_KEYS + 1, V1_ROWS).astype(np.int32)
+    pk = rng.integers(1, V1_KEYS + 1, V1_ROWS).astype(np.int32)
+    (r, s), launches = _counted(lambda: tpujoin_torch.hash_join(bk, pk),
+                                ("sort_histogram", "sort_pass",
+                                 "fill_forward"), "hash_join")
+    r_cpu, s_cpu = tpujoin_torch.hash_join(bk, pk, device="cpu")
+    if oracle.check_join(bk, pk, r, s) != 1 or not same_pairs(r, s, r_cpu,
+                                                              s_cpu):
+        raise AssertionError("v1 hash_join on the card fails the oracle")
+    ht = build(torch.from_numpy(bk).to(dev))
+    lo, counts = hj.probe_count(ht, torch.from_numpy(pk).to(dev))
+    offsets = torch.cumsum(counts, 0, dtype=torch.int64) - counts
+    cap = round_up(len(r), 1 << 20)
+    mark = hj.row_markers(offsets, counts, cap)
+    got = check_kernel(
+        f"fill_forward[v1, {mark.numel()} slots]",
+        lambda: (forward_fill.fill_forward(mark, hj.FILL_STEP),),
+        lambda: (forward_fill.fill_forward_plain(mark, hj.FILL_STEP),),
+        None, "v1")
+    say("v1", f"hash_join {V1_ROWS} x {V1_ROWS}, keys 1..{V1_KEYS}: "
+        f"{len(r)} pairs, capacity {cap} >= {V1_ROWS} probe rows (dense), "
+        f"oracle PASS, the CPU path's multiset; {launches['fill_forward']} "
+        f"fill_forward launch(es), max |err| {got['max_abs_err']} against "
+        f"its plain version on the marker column")
+    del ht, lo, counts, offsets, mark
+
+    cfg = bench.scaled_config("ref_high_selectivity")
+    t0 = time.perf_counter()
+    out, launches = _counted(
+        lambda: bench.bench_join(cfg, True, "v1", dev),
+        ("sort_histogram", "sort_pass", "fill_forward"), "the v1 dense cell")
+    print(json.dumps(out), flush=True)
+    if out["verified"] is not True or out["rle_verified"] is not True:
+        raise AssertionError("v1 dense cell fails its check")
+    if out.get("pairs_checked") != out["result_rows"]:
+        raise AssertionError(f"v1 dense cell checked "
+                             f"{out.get('pairs_checked')} of "
+                             f"{out['result_rows']} pairs")
+    say("v1", f"{cfg.name} v1 dense: {out['probe_chunks']} chunks, count "
+        f"{out['count_seconds']:.6f} s, materialize "
+        f"{out['materialize_seconds']:.6f} s, {out['result_rows']} pairs, "
+        f"every pair checked; RLE result {out['rle_result_seconds']:.6f} s, "
+        f"verified; {time.perf_counter() - t0:.3f} s with its checks; "
+        f"{launches['fill_forward']} fill_forward launches")
+
+
+def device_join_count(bk: torch.Tensor, pk: torch.Tensor) -> int:
+    """|R join S| counted on the card by torch.sort and two
+    torch.searchsorted, apart from the port's join."""
+    srk = torch.sort(bk).values
+    return int((torch.searchsorted(srk, pk, right=True)
+                - torch.searchsorted(srk, pk)).sum())
+
+
+def check_pair_set(bk, pk, r, s, what: str) -> None:
+    """Pair columns on the card are the join exactly: every pair's keys
+    equal, no pair twice, and as many pairs as device_join_count."""
+    r, s = torch.from_numpy(r).to(bk.device), torch.from_numpy(s).to(
+        bk.device)
+    packed = torch.sort((r.long() << 32) | s.long()).values
+    if (not bool((bk[r.long()] == pk[s.long()]).all())
+            or bool((packed[1:] == packed[:-1]).any())
+            or r.shape[0] != device_join_count(bk, pk)):
+        raise AssertionError(f"{what}: not the join's pair set")
+
+
+def split_phase(dev, scale: float) -> None:
+    """semi_join, anti_join and left_outer_join on the card by default
+    from numpy keys at ref_low_selectivity's full width, against
+    torch.isin on the card and the count phase's nonzero; then at 1/100 of
+    it against the CPU path."""
+    cfg = bench.scaled_config("ref_low_selectivity", scale)
+    bk, pk = bench.config_keys(cfg, dev)
+    bk_np, pk_np = bk.cpu().numpy(), pk.cpu().numpy()
+    t0 = time.perf_counter()
+    semi, launches = _counted(lambda: tpujoin_torch.semi_join(bk_np, pk_np),
+                              ("sort_pass", "merge_count", "compact_ids"),
+                              "semi_join")
+    anti = tpujoin_torch.anti_join(bk_np, pk_np)
+    seconds = time.perf_counter() - t0
+    in_build = torch.isin(pk, bk)
+    nonzero = int(mj.probe_count(build(bk), pk)[2])
+    if not (np.array_equal(semi, torch.nonzero(in_build).squeeze(1).cpu()
+                           .numpy())
+            and np.array_equal(anti, torch.nonzero(~in_build).squeeze(1)
+                               .cpu().numpy())
+            and len(semi) == nonzero):
+        raise AssertionError("semi/anti split differs from torch.isin")
+    (r, s), outer = _counted(
+        lambda: tpujoin_torch.left_outer_join(bk_np, pk_np),
+        ("compact3", "expand", "compact_ids"), "left_outer_join")
+    inner = r >= 0
+    k = int(inner.sum())
+    if not (np.array_equal(s[k:], anti) and inner[:k].all()
+            and not inner[k:].any()):
+        raise AssertionError("left outer join: its null rows are not the "
+                             "anti join")
+    check_pair_set(bk, pk, r[inner], s[inner], "left outer join")
+    say("split", f"{cfg.build_rows} x {cfg.probe_rows}: semi {len(semi)} "
+        f"(= nonzero), anti {len(anti)}, equal to torch.isin on the card, "
+        f"{seconds:.3f} s both; {launches['compact_ids']} compact_ids "
+        f"launches in semi_join, {outer['compact_ids']} in "
+        f"left_outer_join; left outer {int(inner.sum())} pairs, every pair "
+        f"a match, none twice, as many as a count on the card, then "
+        f"{len(anti)} null rows")
+    del bk, pk, in_build
+
+    small = bench.scaled_config("ref_low_selectivity", scale / 100)
+    bk, pk = (x.cpu().numpy() for x in bench.config_keys(small, dev))
+    for name in ("semi_join", "anti_join"):
+        fn = getattr(tpujoin_torch, name)
+        if not np.array_equal(fn(bk, pk), fn(bk, pk, device="cpu")):
+            raise AssertionError(f"{name} on the card differs from the CPU")
+    r, s = tpujoin_torch.left_outer_join(bk, pk)
+    r2, s2 = tpujoin_torch.left_outer_join(bk, pk, device="cpu")
+    k, k2 = int((r >= 0).sum()), int((r2 >= 0).sum())
+    if not (np.array_equal(r[k:], r2[k2:]) and np.array_equal(s[k:], s2[k2:])
+            and same_pairs(r[:k], s[:k], r2[:k2], s2[:k2])):
+        raise AssertionError("left_outer_join on the card differs from the "
+                             "CPU")
+    say("split", f"{small.build_rows} x {small.probe_rows}: semi, anti "
+        f"bitwise and left outer (its tail bitwise, its pairs as a "
+        f"multiset) equal to the CPU path")
+
+
+TABLE_ROWS = 20_000
+MULTI_ROWS = 2_000_000       # a side of the multi-column joins here
+
+
+def sorted_rows(cols: dict) -> dict:
+    """A result table's numpy columns with its rows sorted by (s id, r id)
+    where it has them, else as they are."""
+    if "s_sid" in cols:
+        order = np.lexsort((cols["r_rid"], cols["s_sid"]))
+        return {k: v[order] for k, v in cols.items()}
+    return cols
+
+
+def tables_phase(dev) -> None:
+    """hash_join_multi and join_with_pushdown on the card by default from
+    numpy columns at MULTI_ROWS rows a side, against the CPU path, the
+    pushdown's compact3 launched; join_tables for each ``how`` with one and
+    two keys against the CPU path; an npz and a raw-directory round trip
+    that joins after loading."""
+    r, s = (t.to_numpy() for t in bench.multi_join_tables(MULTI_ROWS, dev))
+    on = ["k1", "k2"]
+    got = tpujoin_torch.hash_join_multi(r, s, on)
+    want = tpujoin_torch.hash_join_multi(r, s, on, device="cpu")
+    if not same_pairs(*got, *want) or not len(got[0]):
+        raise AssertionError("hash_join_multi on the card differs")
+    kw = {"r_pred": lambda v: v < 500, "r_pred_col": "v",
+          "s_pred": lambda v: v < 500, "s_pred_col": "v"}
+    pushed, launches = _counted(
+        lambda: tpujoin_torch.join_with_pushdown(r, s, on, **kw),
+        ("compact3", "merge_count", "compact_ids"), "join_with_pushdown")
+    want = tpujoin_torch.join_with_pushdown(r, s, on, device="cpu", **kw)
+    if not same_pairs(*pushed, *want) or not len(pushed[0]):
+        raise AssertionError("join_with_pushdown on the card differs")
+    say("tables", f"hash_join_multi {MULTI_ROWS} x {MULTI_ROWS} on (k1, k2):"
+        f" {len(got[0])} pairs; join_with_pushdown (v < 500 a side): "
+        f"{len(pushed[0])} pairs; both the CPU path's multiset; "
+        f"{launches['compact3']} compact3 launches in the pushdown")
+
+    rng = np.random.default_rng(5)
+    n = TABLE_ROWS
+
+    def table(rows, ids):
+        return {"k1": rng.integers(1, 300, rows).astype(np.int32),
+                "k2": rng.integers(1, 4, rows).astype(np.int32),
+                ids: np.arange(rows, dtype=np.int32)}
+
+    rt, st = table(n, "rid"), table(n + 7, "sid")
+    for how in ("inner", "left", "semi", "anti"):
+        for keys in ("k1", ["k1", "k2"]):
+            out = tpujoin_torch.join_tables(rt, st, keys, how=how)
+            cpu = tpujoin_torch.join_tables(rt, st, keys, how=how,
+                                            device="cpu")
+            a, b = sorted_rows(out.to_numpy()), sorted_rows(cpu.to_numpy())
+            if a.keys() != b.keys() or not all(np.array_equal(a[k], b[k])
+                                               for k in a):
+                raise AssertionError(f"join_tables {how} on {keys} differs "
+                                     f"from the CPU")
+    say("tables", f"join_tables {n} x {n + 7}: inner, left, semi, anti on "
+        f"one and two keys, equal to the CPU path")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = tpujoin_torch.Table.from_numpy(rt, dev)
+        table_io.save_table_npz(t, f"{tmp}/t.npz")
+        table_io.save_table_dir(t, f"{tmp}/tdir")
+        for back in (table_io.load_table_npz(f"{tmp}/t.npz"),
+                     table_io.load_table_dir(f"{tmp}/tdir"),
+                     table_io.load_table_dir(f"{tmp}/tdir", mmap=False)):
+            if back.device != dev or not all(
+                    torch.equal(back[c], t[c]) for c in t.column_names):
+                raise AssertionError("a table round trip differs")
+            rr, ss = tpujoin_torch.merge_join(back["k1"], t["k1"])
+            if oracle.check_join(rt["k1"], rt["k1"], rr, ss) != 1:
+                raise AssertionError("a loaded table's join fails the "
+                                     "oracle")
+    say("tables", f"npz and raw-directory round trips (mmap and read) of "
+        f"{n} rows on the card, each joined after loading: oracle PASS")
 
 
 def full_range(n: int, seed: int, dev) -> torch.Tensor:
@@ -1236,7 +1530,9 @@ def check_dense_slice(out: dict) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="tpujoin_torch smoke run")
     ap.add_argument("--scale", type=float, default=1.0,
-                    help="row-count scale of the low-selectivity slice")
+                    help="row-count scale of the kernels phase's "
+                         "low-selectivity keys, the matrix and the "
+                         "semi/anti/outer split")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1320,13 +1616,10 @@ def main(argv=None) -> int:
         lambda: kernels_phase(dev, low, results),
         lambda: dense_kernels_phase(dev, high, results),
         lambda: runs_phase(dev, results),
-        lambda: slice_phase(dev, low, results, path=(
-            "sort_histogram", "sort_pass", "merge_count", "compact3",
-            "expand"), record=("sort_histogram", "sort_pass", "merge_count",
-                               "compact3", "expand")),
-        lambda: check_dense_slice(slice_phase(dev, high, results, path=(
-            "sort_histogram", "sort_pass", "merge_count", "expand_fill"),
-            record=("expand_fill",))),
+        lambda: matrix_phase(dev, results, args.scale),
+        lambda: v1_phase(dev, results),
+        lambda: split_phase(dev, args.scale),
+        lambda: tables_phase(dev),
         lambda: k6_phase(dev, results),
         lambda: ops_phase(dev, results),
         lambda: probes_phase(dev, results),

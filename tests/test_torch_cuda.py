@@ -16,6 +16,7 @@ from tpujoin_torch import oracle
 from tpujoin_torch.core import datagen
 from tpujoin_torch.ops import aggregate as agg
 from tpujoin_torch.ops import filter as flt
+from tpujoin_torch.ops import hash_join
 from tpujoin_torch.kernels import (carry_scan, compact, expand, expand_fill,
                                    expand_groups, expand_runs, fill_phases,
                                    flat_roll, forward_fill, merge_count,
@@ -815,3 +816,82 @@ def test_mosaic_wrappers_refuse_bad_input():
         mosaic.roll(big[:1024].view(1, 1024), s[:1].cpu())
     with pytest.raises(ValueError):
         mosaic3.flat_rotate(big[:4096].view(32, 128).cpu(), s[:1])
+
+
+@pytest.mark.parametrize("n,m,dom,pad", [(4096, 4096, 64, 1000),
+                                         (1 << 16, 70_001, 3000, 1 << 20),
+                                         (3000, 5000, 10, 8192 * 3 + 5)])
+def test_v1_dense_materialize_on_card_matches_cpu(n, m, dom, pad):
+    """v1's dense materialize (capacity >= probe rows) on the card:
+    fill_forward launched on the row markers, the pairs bitwise equal to
+    the CPU path's (K1 is bitwise its plain version, so both builds agree),
+    at capacities that are no multiple of fill_forward's tile."""
+    rng = np.random.default_rng(n + m)
+    bk = rng.integers(1, dom + 1, n).astype(np.int32)
+    pk = rng.integers(1, dom + 1, m).astype(np.int32)
+    before = forward_fill.LAUNCHES
+    r, s = tpujoin_torch.hash_join(bk, pk, result_pad_multiple=pad)
+    assert forward_fill.LAUNCHES == before + 1
+    cr, cs = tpujoin_torch.hash_join(bk, pk, device="cpu",
+                                     result_pad_multiple=pad)
+    np.testing.assert_array_equal(r, cr)
+    np.testing.assert_array_equal(s, cs)
+    assert oracle.check_join(bk, pk, r, s) == 1
+    ht = hash_join.build(torch.from_numpy(bk).cuda())
+    lo, counts = hash_join.probe_count(ht, torch.from_numpy(pk).cuda())
+    offsets = torch.cumsum(counts, 0, dtype=torch.int64) - counts
+    mark = hash_join.row_markers(offsets, counts, len(r) + 17)
+    _equal((forward_fill.fill_forward(mark, hash_join.FILL_STEP),),
+           (forward_fill.fill_forward_plain(mark, hash_join.FILL_STEP),))
+
+
+@pytest.mark.parametrize("dom", [5, 3000, 10**9])
+def test_match_split_on_card_matches_cpu(dom):
+    """semi, anti and left-outer on the card: compact_ids launched on the
+    matched flag and its complement, each result bitwise the CPU path's
+    (left outer: its pairs as a multiset, its null tail bitwise)."""
+    rng = np.random.default_rng(dom)
+    bk = rng.integers(1, dom + 1, 20_000).astype(np.int32)
+    pk = rng.integers(1, dom + 1, 30_001).astype(np.int32)
+    before = compact.IDS_LAUNCHES
+    semi = tpujoin_torch.semi_join(bk, pk)
+    assert compact.IDS_LAUNCHES - before == (1 if len(semi) in (0, 30_001)
+                                             else 2)
+    np.testing.assert_array_equal(semi, tpujoin_torch.semi_join(
+        bk, pk, device="cpu"))
+    np.testing.assert_array_equal(
+        tpujoin_torch.anti_join(bk, pk),
+        tpujoin_torch.anti_join(bk, pk, device="cpu"))
+    r, s = tpujoin_torch.left_outer_join(bk, pk, result_pad_multiple=4096)
+    cr, cs = tpujoin_torch.left_outer_join(bk, pk, device="cpu",
+                                           result_pad_multiple=4096)
+    k = int((r >= 0).sum())
+    np.testing.assert_array_equal(s[k:], cs[k:])
+    np.testing.assert_array_equal(np.sort(r[:k].astype(np.int64) << 32
+                                          | s[:k]),
+                                  np.sort(cr[:k].astype(np.int64) << 32
+                                          | cs[:k]))
+
+
+@pytest.mark.parametrize("keep", [0.0, 0.3, 1.0])
+def test_pushdown_compact3_on_card_matches_cpu(keep):
+    """The pushdown's compaction of (candidate key, row id) on K3, bitwise
+    its plain version's, with keys at the sentinels' edge."""
+    from tpujoin_torch.ops import multi_join
+    rng = np.random.default_rng(7)
+    n = 100_003
+    cols = {"k": rng.choice(np.array([IMAX, IMAX - 1, IMAX - 2, 5],
+                                     np.int32), n),
+            "v": rng.random(n).astype(np.float32)}
+    on_card = tpujoin_torch.Table.from_numpy(cols, "cuda")
+    on_cpu = tpujoin_torch.Table.from_numpy(cols, "cpu")
+    before = compact.LAUNCHES
+    got = multi_join._push(on_card, lambda v: v < keep, "v",
+                           multi_join.S_PAD_KEY, ["k"], 4096)
+    want = multi_join._push(on_cpu, lambda v: v < keep, "v",
+                            multi_join.S_PAD_KEY, ["k"], 4096)
+    if keep == 0.0:
+        assert got == want == (None, None)
+        return
+    assert compact.LAUNCHES == before + 1
+    _equal(got, tuple(w.cuda() for w in want))

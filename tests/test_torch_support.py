@@ -139,11 +139,13 @@ def test_port_imports_without_jax():
             "fill_variants, primitives, probe_fill, probe_flatroll, "
             "probe_mosaic, probe_mosaic2, probe_mosaic3, probe_opcost, "
             "profile_expand_runs, roll_cost\n"
-            "from tpujoin_torch.ops import aggregate, filter, "
-            "nested_loop_join, radix, sort\n"
-            "from tpujoin_torch.core import table\n"
+            "from tpujoin_torch.ops import aggregate, filter, hash_join, "
+            "merge_join, multi_join, nested_loop_join, radix, sort, "
+            "table_join\n"
+            "from tpujoin_torch.core import io, table\n"
             "from tpujoin_torch.utils import device, verify\n"
-            "assert 'tpujoin' not in sys.modules\n")
+            "assert 'tpujoin' not in sys.modules\n"
+            "assert sys.modules['jax'] is None\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
     pattern = re.compile(r"^\s*(import|from)\s+(jax|tpujoin)\b",
@@ -167,11 +169,14 @@ def test_gpu_entry_points_refuse_without_cuda(tmp_path):
     alone = _run(["chip_smoke.py"], cwd=tmp_path)
     assert alone.returncode != 0 and '"ok"' not in alone.stdout
     assert bench.main(["--scale", "0.001"]) == 1
+    assert bench.main([]) == 1
+    assert bench.main(["--engine", "v1", "--no-verify"]) == 1
     assert profile.main(["--scale", "0.001"]) == 1
-    for op in ("filter", "aggregate", "sort"):
+    for op in ("filter", "aggregate", "sort", "multi_join"):
         assert bench.main(["--op", op, "--rows", "1000"]) == 1
-    for op in ("filter", "aggregate"):
+    for op in ("filter", "aggregate", "multi_join"):
         assert profile.main(["--op", op, "--rows", "1000"]) == 1
+    assert profile.main(["--engine", "v1", "--scale", "0.001"]) == 1
     assert primitives.main(["--rows", "1000"]) == 1
     assert bench_mat2.main(["pscan", "--n", "4096"]) == 1
     assert count_variants.main(["--scale", "0.0001"]) == 1
@@ -198,6 +203,18 @@ ENTRY_POINTS = {
     "nested_loop_join": lambda **kw: tpujoin_torch.nested_loop_join(
         _KEYS, _KEYS, **kw),
     "merge_join": lambda **kw: tpujoin_torch.merge_join(_KEYS, _KEYS, **kw),
+    "hash_join": lambda **kw: tpujoin_torch.hash_join(_KEYS, _KEYS, **kw),
+    "semi_join": lambda **kw: tpujoin_torch.semi_join(_KEYS, _KEYS, **kw),
+    "anti_join": lambda **kw: tpujoin_torch.anti_join(_KEYS, _KEYS, **kw),
+    "left_outer_join": lambda **kw: tpujoin_torch.left_outer_join(
+        _KEYS, _KEYS, **kw),
+    "hash_join_multi": lambda **kw: tpujoin_torch.hash_join_multi(
+        {"k": _KEYS}, {"k": _KEYS}, "k", **kw),
+    "join_with_pushdown": lambda **kw: tpujoin_torch.join_with_pushdown(
+        {"k": _KEYS}, {"k": _KEYS}, "k", r_pred=lambda v: v < 9,
+        r_pred_col="k", **kw),
+    "join_tables": lambda **kw: tpujoin_torch.join_tables(
+        {"key": _KEYS}, {"key": _KEYS}, **kw),
 }
 
 
@@ -211,6 +228,27 @@ def test_entry_points_default_to_the_card(name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[name]()
     ENTRY_POINTS[name](device="cpu")
+
+
+def test_public_api_is_jax_s_but_the_distributed_join():
+    assert set(tpujoin_torch.__all__) == (set(tpujoin.__all__)
+                                          - {"distributed_hash_join"})
+    for name in tpujoin_torch.__all__:
+        assert getattr(tpujoin_torch, name) is not None
+
+
+@pytest.mark.skipif("torch.cuda.is_available()",
+                    reason="checks the refusal without a CUDA device")
+def test_table_loads_default_to_the_card(tmp_path):
+    from tpujoin_torch.core import io
+    t = tpujoin_torch.Table.from_numpy({"k": _KEYS}, "cpu")
+    io.save_table_npz(t, tmp_path / "t.npz")
+    io.save_table_dir(t, tmp_path / "t")
+    for load in (lambda **kw: io.load_table_npz(tmp_path / "t.npz", **kw),
+                 lambda **kw: io.load_table_dir(tmp_path / "t", **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            load()
+        assert load(device="cpu")["k"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("op", ["filter", "aggregate", "sort"])
@@ -236,6 +274,16 @@ def test_bench_ops_run_small_on_cpu(op):
 ])
 def test_profile_busy_time_is_the_union_of_intervals(intervals, busy):
     assert profile.union_length(intervals) == busy
+
+
+@pytest.mark.parametrize("engine", ["v1", "v2"])
+def test_profiled_join_is_the_join(engine):
+    cfg = config.PRESETS["test_small"]
+    bk, pk = bench.config_keys(cfg, "cpu")
+    r, s, *_ = profile.join_once(cfg, bk, pk, engine)
+    total = oracle.join_count(bk, pk)
+    assert (r[total:] == -1).all()
+    assert oracle.check_join(bk, pk, r[:total], s[:total]) == 1
 
 
 def test_cpu_tensor_only_takes_plain_versions():

@@ -13,6 +13,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from tpujoin_torch.utils.device import resolve_device
+
 
 @dataclasses.dataclass
 class Table:
@@ -79,3 +81,14 @@ class Table:
         """0..n-1 index column (reference shared.cpp:35-41
         initRelationIndex)."""
         return cls({name: torch.arange(n, dtype=torch.int32, device=device)})
+
+
+def as_table(table, device: torch.device | str | None = None) -> Table:
+    """``table`` as a Table: a Table stays where it is unless ``device``
+    is given; a mapping of numpy arrays goes to ``device``, by default
+    CUDA (which must then be present)."""
+    if not isinstance(table, Table):
+        return Table.from_numpy(table, resolve_device(device=device))
+    if device is not None:
+        return table.to(resolve_device(device=device))
+    return table

@@ -18,7 +18,7 @@ import torch
 
 from tpujoin_torch.kernels.compact import compact_cols
 from tpujoin_torch.ops.filter import filter_materialize
-from tpujoin_torch.utils.device import resolve_device
+from tpujoin_torch.utils.device import i32_columns
 from tpujoin_torch.utils.shapes import round_up
 
 _WORD = 1 << 32
@@ -131,9 +131,7 @@ def group_by_agg(keys, values, *, device: torch.device | str | None = None,
     arrays, keys ascending, sums exact int64. Keys and values are numpy
     arrays or tensors; ``device`` defaults to the tensors' device, else
     CUDA."""
-    dev = resolve_device(keys, values, device=device)
-    k = torch.as_tensor(keys, dtype=torch.int32, device=dev)
-    v = torch.as_tensor(values, dtype=torch.int32, device=dev)
+    k, v = i32_columns(keys, values, device=device)
     ngroups = int(group_count(k))
     if ngroups == 0:
         e = np.empty(0, np.int32)
@@ -146,8 +144,7 @@ def group_by_count(keys, *, device: torch.device | str | None = None,
                    pad_multiple: int = 1 << 16):
     """Driver: exact-size (unique_keys, counts) as numpy int32 arrays, keys
     ascending. ``device`` as in :func:`group_by_agg`."""
-    dev = resolve_device(keys, device=device)
-    k = torch.as_tensor(keys, dtype=torch.int32, device=dev)
+    k, = i32_columns(keys, device=device)
     ngroups = int(group_count(k))
     if ngroups == 0:
         return np.empty((0,), np.int32), np.empty((0,), np.int32)

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from tpujoin_torch.core.table import Table
+from tpujoin_torch.core.table import as_table
 from tpujoin_torch.kernels.compact import compact_ids
 from tpujoin_torch.utils.device import resolve_device
 from tpujoin_torch.utils.shapes import round_up
@@ -41,10 +41,7 @@ def filter_table(table, predicate, column: str, *,
     arrays with ``return_numpy``. ``table`` is a Table, or a mapping of
     numpy arrays that goes to ``device`` (default: the Table's device, else
     CUDA)."""
-    if not isinstance(table, Table):
-        table = Table.from_numpy(table, resolve_device(device=device))
-    elif device is not None:
-        table = table.to(resolve_device(device=device))
+    table = as_table(table, device)
     mask = predicate(table[column])
     total = int(filter_count(mask))
     ids, _ = filter_materialize(mask, round_up(total, pad_multiple))

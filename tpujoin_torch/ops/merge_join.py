@@ -13,6 +13,11 @@ tpujoin/ops/merge_join.py).
 
 Results come out in sorted-probe order; the join result is an unordered
 multiset, checked as one by the oracle, so nothing is unsorted.
+
+The semi, anti and left-outer joins run on the same count state: the
+matched flag scattered into probe-id order, compacted by K6a
+(``compact_ids``) on itself and on its complement, gives the matched and
+the unmatched probe ids, each ascending, with no sort.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpujoin_torch.kernels.compact import compact3
+from tpujoin_torch.kernels.compact import compact3, compact_ids
 from tpujoin_torch.kernels.expand import expand
 from tpujoin_torch.kernels.expand_fill import expand_fill
 from tpujoin_torch.kernels.expand_groups import expand_groups
@@ -29,7 +34,7 @@ from tpujoin_torch.kernels.expand_runs import expand_runs
 from tpujoin_torch.kernels.merge_count import merge_count
 from tpujoin_torch.kernels.merge_sort import sort_pairs
 from tpujoin_torch.ops.hash_join import HashJoinTable, _i32_tensor, build
-from tpujoin_torch.utils.device import resolve_device
+from tpujoin_torch.utils.device import i32_columns
 from tpujoin_torch.utils.shapes import round_up
 
 INT32_MAX = 0x7FFFFFFF
@@ -220,9 +225,7 @@ def merge_join_rle(build_keys, probe_keys, *,
     expands to the pairs (sorted_build_ids[lo[r] + j], probe_ids[r]) for
     j < cnt[r]. Keys are numpy arrays or tensors; ``device`` defaults to
     the tensors' device, else CUDA."""
-    dev = resolve_device(build_keys, probe_keys, device=device)
-    bk = torch.as_tensor(build_keys, dtype=torch.int32, device=dev)
-    pk = torch.as_tensor(probe_keys, dtype=torch.int32, device=dev)
+    bk, pk = i32_columns(build_keys, probe_keys, device=device)
     ht = build(bk)
     state, _, nonzero = probe_count(ht, pk)
     nonzero = int(nonzero)
@@ -233,6 +236,69 @@ def merge_join_rle(build_keys, probe_keys, *,
     k_cap = round_up(nonzero, row_pad_multiple)
     cols = probe_rle(state, k_cap, all_matched=nonzero == pk.shape[0])
     return (*(c[:nonzero].cpu().numpy() for c in cols), src)
+
+
+def _match_partition(state: SortedProbe, nonzero: int) -> torch.Tensor:
+    """[m] int32: the ``nonzero`` matched probe ids ascending, then the
+    unmatched ones ascending."""
+    m = state.counts.shape[0]
+    matched = torch.zeros(m, dtype=torch.bool, device=state.counts.device)
+    matched[state.probe_ids.long()] = state.counts > 0
+    parts = [compact_ids(mask, k)[0]
+             for mask, k in ((matched, nonzero), (~matched, m - nonzero))
+             if k]
+    return torch.cat(parts) if parts else state.probe_ids[:0]
+
+
+def _partition(build_keys, probe_keys, device):
+    """(ht, state, total, nonzero, partition) of one join, where total and
+    nonzero are ints and partition is :func:`_match_partition`'s."""
+    bk, pk = i32_columns(build_keys, probe_keys, device=device)
+    ht = build(bk)
+    state, total, nonzero = probe_count(ht, pk)
+    nonzero = int(nonzero)
+    return ht, state, int(total), nonzero, _match_partition(state, nonzero)
+
+
+def semi_join(build_keys, probe_keys, *,
+              device: torch.device | str | None = None, **_ignored):
+    """Probe-side semi join: the ids of the probe rows with at least one
+    build match, ascending, as a numpy int32 array. Keys and ``device`` as
+    in :func:`merge_join`; other keywords (``row_pad_multiple``) are taken
+    and ignored, as by the JAX package."""
+    *_, nonzero, part = _partition(build_keys, probe_keys, device)
+    return part[:nonzero].cpu().numpy()
+
+
+def anti_join(build_keys, probe_keys, *,
+              device: torch.device | str | None = None, **_ignored):
+    """Probe-side anti join: the ids of the probe rows with no build
+    match, ascending, as a numpy int32 array."""
+    *_, nonzero, part = _partition(build_keys, probe_keys, device)
+    return part[nonzero:].cpu().numpy()
+
+
+def left_outer_join(build_keys, probe_keys, *,
+                    device: torch.device | str | None = None,
+                    result_pad_multiple: int = 1 << 20, **_ignored):
+    """Probe-side left outer join as numpy int32 arrays (r_ids, s_ids):
+    every inner pair (on :func:`probe_materialize`), then (-1, id) for each
+    unmatched probe row, ascending. One count and one materialize."""
+    ht, state, total, nonzero, part = _partition(build_keys, probe_keys,
+                                                 device)
+    unmatched = part[nonzero:].cpu().numpy()
+    r_inner = s_inner = np.empty(0, np.int32)
+    if total:
+        cap = round_up(total, result_pad_multiple)
+        k_cap = round_up(nonzero, max(result_pad_multiple // 8, 1024))
+        r_ids, s_ids, _, fits = probe_materialize(
+            ht, state, k_cap, cap, total=total, nonzero=nonzero)
+        if not bool(fits):
+            raise RuntimeError("materialize capacity undersized")
+        r_inner = r_ids[:total].cpu().numpy()
+        s_inner = s_ids[:total].cpu().numpy()
+    return (np.concatenate([r_inner, np.full(len(unmatched), -1, np.int32)]),
+            np.concatenate([s_inner, unmatched]))
 
 
 def plan_materialize(ht: HashJoinTable, state: SortedProbe, k_cap: int,
@@ -279,9 +345,7 @@ def merge_join(build_keys, probe_keys, *,
     is no silent CPU fallback: pass ``device="cpu"`` for the plain
     versions). The probe side runs in chunks of ``probe_chunk_rows`` (all
     at once when None), the last one at its own length."""
-    dev = resolve_device(build_keys, probe_keys, device=device)
-    bk = torch.as_tensor(build_keys, dtype=torch.int32, device=dev)
-    pk = torch.as_tensor(probe_keys, dtype=torch.int32, device=dev)
+    bk, pk = i32_columns(build_keys, probe_keys, device=device)
     m = pk.shape[0]
     chunk = m if probe_chunk_rows is None else min(probe_chunk_rows, max(m, 1))
 

@@ -15,7 +15,7 @@ import torch
 
 from tpujoin_torch.core.table import Table
 from tpujoin_torch.ops.filter import filter_materialize
-from tpujoin_torch.utils.device import resolve_device
+from tpujoin_torch.utils.device import i32_columns
 from tpujoin_torch.utils.shapes import round_up
 
 
@@ -48,9 +48,7 @@ def nested_loop_join(r_keys, s_keys, *,
     exact-size (rowID_R, rowID_S) pairs as numpy int32 arrays. Keys are
     numpy arrays or tensors; ``device`` defaults to the tensors' device,
     else CUDA."""
-    dev = resolve_device(r_keys, s_keys, device=device)
-    rk = torch.as_tensor(r_keys, dtype=torch.int32, device=dev)
-    sk = torch.as_tensor(s_keys, dtype=torch.int32, device=dev)
+    rk, sk = i32_columns(r_keys, s_keys, device=device)
     total = int(nested_loop_count(rk, sk))
     if total == 0:
         return np.empty((0,), np.int32), np.empty((0,), np.int32)

@@ -1,10 +1,12 @@
 """Device time of one operation, by kernel, and the device's busy share.
 
-The operation (``--op``) is one v2 join of a config (build, count, the
-count's totals to the host, materialize, as ``merge_join`` runs one chunk),
-one ``filter_device`` over the bench's filter column, or one
-``group_agg_materialize`` over the bench's aggregate keys and values (sort,
-cumsum, the 6-column compact_cols), at the bench's sizes and capacities.
+The operation (``--op``) is one join of a config (build, count, the
+count's totals to the host, materialize, as ``merge_join`` runs one chunk
+on v2 or ``hash_join`` on v1, ``--engine``), one ``filter_device`` over
+the bench's filter column, one ``group_agg_materialize`` over the bench's
+aggregate keys and values (sort, cumsum, the 6-column compact_cols), or
+one ``hash_join_multi`` of the bench's multi-column tables, at the bench's
+sizes and capacities.
 It runs once to warm up, once under the host clock alone and once under
 ``torch.profiler``. Device time comes from the trace's device rows only
 (kernels, copies, fills): the CPU operators' device totals count each of
@@ -15,8 +17,9 @@ synchronize.
 stdout is one JSON line; the kernel table goes to stderr.
 
 Usage: python -m tpujoin_torch.profile [--op join] [--config NAME]
-                                       [--scale F]
-       python -m tpujoin_torch.profile --op {filter,aggregate} [--rows N]
+                                       [--engine {v1,v2}] [--scale F]
+       python -m tpujoin_torch.profile --op {filter,aggregate,multi_join}
+                                       [--rows N]
 
 It needs a CUDA device.
 """
@@ -33,9 +36,11 @@ import torch
 from tpujoin_torch.bench import (DENSE_MATCHES, FILTER_THRESHOLD, OP_ROWS,
                                  aggregate_inputs, config_keys, eprint,
                                  filter_capacity, filter_values,
-                                 scaled_config)
+                                 multi_join_tables, scaled_config)
 from tpujoin_torch.core.config import PRESETS, JoinConfig
 from tpujoin_torch.ops import aggregate as agg
+from tpujoin_torch.ops import hash_join as hj
+from tpujoin_torch.ops.multi_join import hash_join_multi
 from tpujoin_torch.ops.filter import filter_device
 from tpujoin_torch.ops.hash_join import build
 from tpujoin_torch.ops.merge_join import plan_materialize, probe_count
@@ -52,10 +57,17 @@ def union_length(intervals) -> float:
     return busy
 
 
-def join_once(cfg: JoinConfig, bk: torch.Tensor, pk: torch.Tensor):
-    """One join's pair columns on the path plan_materialize picks, at the
-    capacities the bench gives ``cfg``."""
+def join_once(cfg: JoinConfig, bk: torch.Tensor, pk: torch.Tensor,
+              engine: str = "v2"):
+    """One join's pair columns, on v2 on the path plan_materialize picks,
+    at the capacities the bench gives ``cfg``; or on v1 at its total
+    rounded up to the config's pad."""
     ht = build(bk)
+    if engine == "v1":
+        lo, counts = hj.probe_count(ht, pk)
+        cap = round_up(int(counts.sum(dtype=torch.int64)),
+                       cfg.result_pad_multiple)
+        return hj.probe_materialize(ht, lo, counts, cap)
     state, total, nonzero = probe_count(ht, pk)
     total, nonzero = int(total), int(nonzero)
     cap = round_up(total, cfg.result_pad_multiple)
@@ -114,13 +126,23 @@ def _device() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def profile_join(cfg: JoinConfig) -> dict:
+def profile_join(cfg: JoinConfig, engine: str = "v2") -> dict:
     """Profile one join of ``cfg`` on the current CUDA device."""
     dev = _device()
     bk, pk = config_keys(cfg, dev)
-    out = profile_fn(lambda: join_once(cfg, bk, pk), dev)
-    return {"op": "join", "config": cfg.name, "build_rows": cfg.build_rows,
-            "probe_rows": cfg.probe_rows, **out}
+    out = profile_fn(lambda: join_once(cfg, bk, pk, engine), dev)
+    return {"op": "join", "engine": engine, "config": cfg.name,
+            "build_rows": cfg.build_rows, "probe_rows": cfg.probe_rows,
+            **out}
+
+
+def profile_multi_join(rows: int) -> dict:
+    """Profile one hash_join_multi on (k1, k2) of the bench's tables."""
+    dev = _device()
+    r, s = multi_join_tables(rows, dev)
+    out = profile_fn(lambda: hash_join_multi(r, s, ["k1", "k2"],
+                                             return_numpy=False), dev)
+    return {"op": "multi_join", "rows": rows, **out}
 
 
 def profile_filter(rows: int) -> dict:
@@ -146,21 +168,25 @@ def profile_aggregate(rows: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--op", default="join",
-                    choices=["join", "filter", "aggregate"])
+                    choices=["join", "filter", "aggregate", "multi_join"])
     ap.add_argument("--config", default="ref_low_selectivity",
                     choices=sorted(PRESETS))
+    ap.add_argument("--engine", default="v2", choices=["v1", "v2"])
     ap.add_argument("--scale", type=float, default=1.0,
                     help="row-count scale factor of the join config")
     ap.add_argument("--rows", type=int, default=OP_ROWS,
-                    help="row count of --op filter/aggregate")
+                    help="row count of --op filter/aggregate/multi_join")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         eprint("tpujoin_torch.profile: no CUDA device")
         return 1
     if args.op == "join":
-        out = profile_join(scaled_config(args.config, args.scale))
+        out = profile_join(scaled_config(args.config, args.scale),
+                           args.engine)
     elif args.op == "filter":
         out = profile_filter(args.rows)
+    elif args.op == "multi_join":
+        out = profile_multi_join(args.rows)
     else:
         out = profile_aggregate(args.rows)
     for k in out["kernels"]:

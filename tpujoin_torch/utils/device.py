@@ -18,3 +18,11 @@ def resolve_device(*inputs, device: torch.device | str | None = None
         raise RuntimeError("tpujoin_torch: no CUDA device; pass "
                            "device='cpu' to run the plain versions")
     return device
+
+
+def i32_columns(*cols, device: torch.device | str | None = None):
+    """``cols`` (numpy arrays or tensors) as int32 tensors on the device
+    :func:`resolve_device` picks for them."""
+    dev = resolve_device(*cols, device=device)
+    return tuple(torch.as_tensor(c, dtype=torch.int32, device=dev)
+                 for c in cols)
