@@ -19,19 +19,23 @@ Phases, one line each (details on stderr):
               width with the i32 extremes and a small join checked against
               the native oracle; sort_pairs on ref_high_selectivity's build
               keys, timed beside torch.sort, and K2 on its sorted keys; K5
-              and
-              K7 (expand_fill, expand_groups, expand_runs) on
+              and K7 (expand_fill, expand_groups, expand_runs) on
               ref_high_selectivity's count state at its full capacity
-              (~1e9 slots), K5's partition pass and fill kernel each
-              timed under torch.profiler beside the whole call, K5 again
-              on a state of 2^26 one-slot runs (groups from offset > 0,
-              periods 1 to above a tile, a ragged capacity), and
-              probe_materialize_groups on the dense state, which is
-              expand_groups' path;
+              (~1e9 slots), K5's and K7b's partition pass and fill
+              kernel each timed under torch.profiler beside the whole
+              call, K5 and K7b again on 2^26 one-slot runs (K5: groups from offset > 0,
+              periods 1 to above a tile; K7b: source starts at random,
+              some near or past both ends of the source; a ragged
+              capacity), and probe_materialize_groups on the dense state,
+              which is expand_groups' path;
   4. runs     a 4096 x 4096 join with ~16 matches per row through
               merge_join on the card: the runs path (expand_runs), checked
               against the oracle and the CPU path;
-  5. matrix   tpujoin_torch.bench's default matrix at full size through
+  5. k6       K6a compact_ids and K6b compact_cols against their plain
+              versions on the filter's and the aggregate's own 100M-row
+              inputs, bitwise and timed, with torch.nonzero beside K6a and
+              K6a's scan and tail each timed under torch.profiler;
+  6. matrix   tpujoin_torch.bench's default matrix at full size through
               run_matrix, the function its main runs: v2 on
               ref_low_selectivity (100M x 100M) and ref_high_selectivity
               (10M x 10M, ~1e9 pairs), v1 on ref_low_selectivity, v1's
@@ -59,9 +63,6 @@ Phases, one line each (details on stderr):
               join_tables for each how on one and two keys against the CPU
               path, and an npz and a raw-directory round trip joined after
               loading;
-  6. k6       K6a compact_ids and K6b compact_cols against their plain
-              versions on the filter's and the aggregate's own 100M-row
-              inputs, bitwise and timed, with torch.nonzero beside K6a;
   7. ops      tpujoin_torch.bench's filter at 100M rows and aggregate at
               10M (cut from 100M to hold the wall), verified (numpy; the native group count and a numpy
               recompute of every group's sum, min and max), an 8192 x 8192
@@ -280,7 +281,13 @@ def bound(results: dict, name: str, nbytes: float, ops: float,
 def kernel_ms(fn, names: tuple, reps: int = 5) -> dict:
     """Device ms of each kernel whose name holds one of ``names``: the
     least over ``reps`` runs of ``fn`` under torch.profiler (device rows
-    only). Raises if one of them did not run."""
+    only). Raises if one of them did not run.
+
+    Call it only before the matrix phase. After the matrix, v1, split and
+    tables phases had run, a call on K6a saw no device row of its kernels
+    on an NVIDIA H100 80GB HBM3 (700.00 W), while the same call in a fresh
+    process, and every call before the matrix, saw them; the cause is not
+    known (PERF.md §7)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -299,7 +306,10 @@ def kernel_ms(fn, names: tuple, reps: int = 5) -> dict:
                                 e.time_range.elapsed_us() / 1e3)
     missing = [key for key in names if key not in best]
     if missing:
-        raise AssertionError(f"the profiler saw no {missing} kernel")
+        seen = sorted({e.name[:60] for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA})
+        raise AssertionError(f"the profiler saw no {missing} kernel; its "
+                             f"device rows: {seen[:8]}")
     return best
 
 
@@ -324,6 +334,27 @@ def one_slot_state(slots: int, dev, seed: int = 9):
                         dtype=torch.int32)
     src = torch.randperm(n, generator=g, device=dev).to(torch.int32)
     return (roff, rsid, goff, glo, gnb, src, slots, ngroups, slots,
+            slots + expand_fill.TILE // 2 + 5)
+
+
+def one_slot_runs(slots: int, dev, seed: int = 10):
+    """expand_runs' inputs for ``slots`` one-slot runs, as one_slot_state
+    builds its runs (each tile meets TILE + 1 runs): each run's source
+    start at random over 2^22 source ids, every 97th within 8 of the
+    first or past it, every 97th from the 48th on within 8 of the last or
+    past it; the capacity is no multiple of the tile."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = 1 << 22
+    offs = torch.arange(slots, dtype=torch.int32, device=dev)
+    sid = torch.randperm(slots, generator=g, device=dev).to(torch.int32)
+    lo = torch.randint(0, n, (slots,), generator=g, device=dev,
+                       dtype=torch.int32)
+    lo[::97] = torch.randint(-8, 8, lo[::97].shape, generator=g, device=dev,
+                             dtype=torch.int32)
+    lo[48::97] = torch.randint(n - 8, n + 8, lo[48::97].shape, generator=g,
+                               device=dev, dtype=torch.int32)
+    src = torch.randperm(n, generator=g, device=dev).to(torch.int32)
+    return (offs, lo, sid, src, slots, slots,
             slots + expand_fill.TILE // 2 + 5)
 
 
@@ -550,6 +581,14 @@ def dense_kernels_phase(dev, cfg, results: dict) -> None:
         f"{split['expand_fill_kernel']:.6f} ms (torch.profiler, least of "
         f"5), whole call {results['expand_fill']['ms']:.6f} ms (events); "
         f"bound {results['expand_fill']['bound_ms']:.6f} ms")
+    bound(results, "expand_runs", 12 * nonzero + 4 * src_read + 8 * cap, cap)
+    split = kernel_ms(lambda: expand_runs.expand_runs(*runs_args),
+                      ("partition_kernel", "expand_fill_kernel"))
+    say("kernels", f"expand_runs at {cap} slots: partition pass "
+        f"{split['partition_kernel']:.6f} ms, fill kernel "
+        f"{split['expand_fill_kernel']:.6f} ms (torch.profiler, least of "
+        f"5), whole call {results['expand_runs']['ms']:.6f} ms (events); "
+        f"bound {results['expand_runs']['bound_ms']:.6f} ms")
     del fill_args, runs_args
     torch.cuda.empty_cache()
     one_slot = one_slot_state(1 << 26, dev)
@@ -557,7 +596,11 @@ def dense_kernels_phase(dev, cfg, results: dict) -> None:
                  lambda: expand_fill.expand_fill(*one_slot),
                  lambda: expand_fill.expand_fill_plain(*one_slot), None)
     del one_slot
-    bound(results, "expand_runs", 12 * nonzero + 4 * src_read + 8 * cap, cap)
+    one_slot = one_slot_runs(1 << 26, dev)
+    check_kernel(f"expand_runs[{1 << 26} one-slot runs]",
+                 lambda: expand_runs.expand_runs(*one_slot),
+                 lambda: expand_runs.expand_runs_plain(*one_slot), None)
+    del one_slot
     say("kernels", f"dense widths: {ht.num_rows} x {m} keys, nonzero="
         f"{nonzero} k_cap={k_cap} groups={ngroups} total={total} "
         f"capacity={cap}, compaction "
@@ -580,6 +623,19 @@ def dense_kernels_phase(dev, cfg, results: dict) -> None:
         f"expand_groups launch(es), equal to probe_materialize_fill")
 
 
+def say_ids_split(mask, k_cap: int, whole_ms: float, bound_ms: float,
+                  what: str) -> None:
+    """K6a's scan and tail kernels on ``mask``, each timed under
+    torch.profiler, beside the whole call's event time."""
+    split = kernel_ms(lambda: compact.compact_ids(mask, k_cap),
+                      ("compact_ids_scan_kernel", "compact_ids_tail_kernel"))
+    say("k6", f"compact_ids on {what}: scan "
+        f"{split['compact_ids_scan_kernel']:.6f} ms, tail "
+        f"{split['compact_ids_tail_kernel']:.6f} ms (torch.profiler, least "
+        f"of 5), whole call {whole_ms:.6f} ms (events); bound "
+        f"{bound_ms:.6f} ms")
+
+
 def k6_phase(dev, results: dict) -> None:
     """K6a and K6b against their plain versions on the inputs the filter
     and the aggregate give them at OP_ROWS rows: K6a on the filter's mask
@@ -599,6 +655,8 @@ def k6_phase(dev, results: dict) -> None:
     say("k6", f"compact_ids on the filter mask: {OP_ROWS} rows, {kept} "
         f"kept, k_cap {cap}; torch.nonzero "
         f"{results['compact_ids']['library_ms']:.3f} ms")
+    say_ids_split(mask, cap, results["compact_ids"]["ms"],
+                  results["compact_ids"]["bound_ms"], "the filter mask")
     del mask
 
     keys, values = bench.aggregate_inputs(OP_ROWS, OP_ROWS // 10, dev)
@@ -609,11 +667,13 @@ def k6_phase(dev, results: dict) -> None:
     boundary = check_kernel(
         "compact_ids[aggregate]", lambda: compact.compact_ids(starts, gcap),
         lambda: compact.compact_ids_plain(starts, gcap), None, "k6")
+    starts_bound = (OP_ROWS + 4 * gcap) / hbm_bytes_per_s() * 1e3
     say("k6", f"compact_ids on the group starts: {ngroups} groups, k_cap "
-        f"{gcap}; bound {(OP_ROWS + 4 * gcap) / hbm_bytes_per_s() * 1e3:.3f} "
-        f"ms; torch.nonzero "
+        f"{gcap}; bound {starts_bound:.3f} ms; torch.nonzero "
         f"{cuda_ms(lambda: torch.nonzero(starts), 'torch.nonzero'):.3f} ms"
         f" (kernel {boundary['ms']:.3f} ms)")
+    say_ids_split(starts, gcap, boundary["ms"], starts_bound,
+                  "the group starts")
 
     def flat(res):
         return (*res[0], res[1])
@@ -1616,11 +1676,11 @@ def main(argv=None) -> int:
         lambda: kernels_phase(dev, low, results),
         lambda: dense_kernels_phase(dev, high, results),
         lambda: runs_phase(dev, results),
+        lambda: k6_phase(dev, results),   # kernel_ms: before the matrix
         lambda: matrix_phase(dev, results, args.scale),
         lambda: v1_phase(dev, results),
         lambda: split_phase(dev, args.scale),
         lambda: tables_phase(dev),
-        lambda: k6_phase(dev, results),
         lambda: ops_phase(dev, results),
         lambda: probes_phase(dev, results),
         lambda: variants_phase(dev, results),

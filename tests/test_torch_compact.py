@@ -76,6 +76,39 @@ def test_compact_ids_matches_jax(sel, seed, k_cap, dtype):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ids))
 
 
+def _ids_mask(n: int, seed: int, dtype):
+    """A 0/1 mask of n rows (the JAX kernel's domain), ~40% set."""
+    return (np.random.default_rng(seed).random(n) < 0.4).astype(dtype)
+
+
+def _ids_against_jax(mask_np, mask_t, k_cap):
+    ids, nonzero, fits = jax_compact_ids(jnp.asarray(mask_np), k_cap,
+                                         **JAX_CPU)
+    assert bool(fits)
+    got, got_nonzero = compact.compact_ids(mask_t, k_cap)
+    assert got.shape == (k_cap,) and int(got_nonzero) == int(nonzero)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ids))
+
+
+@pytest.mark.parametrize("dtype", [np.bool_, np.int32])
+@pytest.mark.parametrize("n", [1, 17, 4099])
+def test_compact_ids_ragged_length_matches_jax(n, dtype):
+    """Lengths that are no multiple of a 16-byte load or of a tile."""
+    mask = _ids_mask(n, n, dtype)
+    _ids_against_jax(mask, torch.from_numpy(mask), 2048)
+
+
+@pytest.mark.parametrize("dtype", [np.bool_, np.int32])
+@pytest.mark.parametrize("offset", [1, 7, 15])
+def test_compact_ids_sliced_view_matches_jax(offset, dtype):
+    """A contiguous view starting ``offset`` rows into its storage: the
+    ids count from the view's first row."""
+    base = _ids_mask(N + 16, offset, dtype)
+    view = torch.from_numpy(base)[offset:offset + N]
+    assert view.storage_offset() == offset and view.is_contiguous()
+    _ids_against_jax(base[offset:offset + N], view, 2048)
+
+
 @pytest.mark.parametrize("sel,seed", [(0.6, 5), (0.35, 6)])
 def test_compact_cols_matches_jax(sel, seed):
     """Six columns with negative values, the aggregate value path's

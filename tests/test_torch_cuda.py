@@ -263,6 +263,60 @@ def test_expand_pair_kernels(state, extra):
             expand_runs.LAUNCHES) == tuple(b + (cap > 0) for b in before)
 
 
+RUNS_CASES = ["long_runs", "one_slot", "below_total", "past_ends", "no_runs"]
+
+
+def _runs_case(name: str):
+    """K7b's inputs on the card: (offs, lo, sid, src, nonzero, total,
+    capacity), 9 pad runs past the real ones (offset == total). long_runs:
+    runs longer than a tile, one across 40 tiles; one_slot: 2^16 one-slot
+    runs, so each tile meets TILE + 1 runs; below_total: the capacity ends
+    3 tiles and 7 slots short of the total; past_ends: source indices below
+    0 and past n, the first two runs' beyond the i32 range; no_runs:
+    nonzero 0 under a total of 5000. Every capacity but below_total's is
+    the total plus half a tile and 5."""
+    rng = np.random.default_rng(len(name))
+    t, nsrc = _FILL_TILE, 1 << 16
+    counts = {"long_runs": np.array([t + 5, 3, 40 * t + 17, 2 * t, 1, t - 1]),
+              "one_slot": np.ones(1 << 16, np.int64),
+              "below_total": rng.integers(1, 50, 5000),
+              "past_ends": rng.integers(1, 3 * t, 300),
+              "no_runs": np.zeros(0, np.int64)}[name]
+    k = len(counts)
+    total = int(counts.sum()) if k else 5000
+    offs = np.cumsum(counts) - counts
+    lo = rng.integers(0, nsrc - 3 * t, k)
+    if name == "one_slot":
+        lo = rng.integers(-8, nsrc + 8, k)
+    if name == "past_ends":
+        lo[::3] = rng.integers(-3 * t, 0, len(lo[::3]))
+        lo[1::3] = rng.integers(nsrc - 8, nsrc + 8, len(lo[1::3]))
+        lo[:2] = [IMIN, IMAX]
+    capacity = {"below_total": total - 3 * t - 7}.get(name, total + t // 2 + 5)
+
+    def col(vals, fill):
+        return torch.tensor(np.concatenate([vals, np.full(9, fill)]),
+                            dtype=torch.int32, device="cuda")
+
+    src = torch.from_numpy(rng.permutation(nsrc).astype(np.int32)).cuda()
+    return (col(offs, total), col(lo, 0), col(rng.permutation(k), 0), src,
+            k, total, capacity)
+
+
+@pytest.mark.parametrize("name", RUNS_CASES)
+def test_expand_runs_kernel(name):
+    """K7b against its plain version: long runs, one-slot runs, a capacity
+    below the total and off the tile, a source index past both ends of
+    src, and no run."""
+    args = _runs_case(name)
+    before = expand_runs.LAUNCHES
+    got = expand_runs.expand_runs(*args)
+    _equal(got, expand_runs.expand_runs_plain(*args))
+    assert expand_runs.LAUNCHES == before + 1
+    if name == "past_ends":   # the case reaches outside src
+        assert (got[0][:args[5]] == -1).any()
+
+
 def test_merge_join_defaults_to_the_card():
     rng = np.random.default_rng(1)
     bk = rng.integers(1, 257, 4096).astype(np.int32)
@@ -364,6 +418,36 @@ def test_compact_ids_kernel(n, sel, dtype, k_cap_of):
     _equal(compact.compact_ids(mask, k_cap),
            compact.compact_ids_plain(mask, k_cap))
     assert compact.IDS_LAUNCHES == before + (n > 0)
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, (1 << 20) + 3])
+@pytest.mark.parametrize("fill", ["random", "zero", "all"])
+@pytest.mark.parametrize("dtype", ["bool", "int32"])
+def test_compact_ids_scan_kernel(n, fill, dtype):
+    """K6a's scan at lengths around one 16-byte load and past a tile, on
+    all-zero and all-set masks (an int32 one holding negative unset
+    values), k_cap below, at and above the count."""
+    mask = _mask(n, {"random": 0.5, "zero": 0.0, "all": 1.0}[fill], dtype)
+    k = int(compact._keep(mask).sum())
+    before = compact.IDS_LAUNCHES
+    for k_cap in (k // 2, k, k + 21):
+        _equal(compact.compact_ids(mask, k_cap),
+               compact.compact_ids_plain(mask, k_cap))
+    assert compact.IDS_LAUNCHES == before + 3
+
+
+@pytest.mark.parametrize("offset", range(1, 16))
+@pytest.mark.parametrize("dtype", ["bool", "int32"])
+def test_compact_ids_on_a_view(offset, dtype):
+    """K6a on ``mask[offset:]``: a view that starts off its 16-byte
+    boundary (bool: at byte offset 1-15)."""
+    base = _mask(100_000 + offset, 0.4, dtype)
+    mask = base[offset:]
+    assert mask.data_ptr() % 16 == offset * mask.element_size() % 16
+    k = int(compact._keep(mask).sum())
+    for k_cap in (k // 3, k + 5):
+        _equal(compact.compact_ids(mask, k_cap),
+               compact.compact_ids_plain(mask, k_cap))
 
 
 @pytest.mark.parametrize("ncols", [1, 3, 6, 8])

@@ -16,13 +16,15 @@ from tpujoin.kernels.expand_runs import expand_runs as jax_expand_runs
 from tpujoin_torch.kernels import expand_runs as er
 
 K, N, CAP = 1024, 32768, 32768   # rows of runs and of src; slots
+WIDE_K = 4096                    # rows of runs of the one-slot case
 SRC_SLAB = 16384
 
 
-def layout(counts, lo, sid, src):
+def layout(counts, lo, sid, src, width=K):
     """Per-run counts/lo/sid as the JAX kernel's inputs at the fixed
-    widths: (offsets, lo, counts, sid, src) as numpy int32, and (nonzero,
-    total). The port's kernel takes the same without the counts."""
+    widths (``width`` rows of runs): (offsets, lo, counts, sid, src) as
+    numpy int32, and (nonzero, total). The port's kernel takes the same
+    without the counts."""
     counts = np.asarray(counts, np.int32)
     k = len(counts)
     total = int(counts.sum())
@@ -33,8 +35,8 @@ def layout(counts, lo, sid, src):
         return out
 
     offs = (np.cumsum(counts) - counts).astype(np.int32)
-    cols = (padded(offs, K, total), padded(lo, K), padded(counts, K),
-            padded(sid, K), padded(src, N))
+    cols = (padded(offs, width, total), padded(lo, width),
+            padded(counts, width), padded(sid, width), padded(src, N))
     return cols, (k, total)
 
 
@@ -49,6 +51,18 @@ def _randomized(seed):
     return counts, lo, rng.permutation(k), src
 
 
+def _runs_of(counts, seed):
+    """Runs of ``counts`` over one source column, each run's slice a few
+    ids past the last one's start (lo non-decreasing, as the count leaves
+    it), probe ids a permutation."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts, np.int32)
+    lo = np.cumsum(rng.integers(0, 4, len(counts))).astype(np.int32)
+    src = rng.integers(0, 1 << 30, int((lo + counts).max()) + 8,
+                       dtype=np.int32)
+    return counts, lo, rng.permutation(len(counts)), src
+
+
 CASES = {
     "single_run": ([5], [2], [7], np.arange(100) * 3),
     "adjacent_runs": ([3, 4, 1], [0, 3, 7], [9, 1, 4], np.arange(64) + 100),
@@ -56,6 +70,9 @@ CASES = {
                              np.arange(64) * 11),
     "run_spanning_many_tiles": ([20000], [1], [3], np.arange(30000)),
     **{f"randomized_{s}": _randomized(s) for s in range(3)},
+    # runs longer than the card's 2048-slot tile, between short ones
+    "runs_longer_than_a_tile": _runs_of([2049, 3, 4097, 1, 2500, 6000, 7],
+                                        4),
 }
 
 
@@ -75,6 +92,16 @@ def _run_both(cols, sizes, capacity):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_expand_runs_matches_jax(case):
     _run_both(*layout(*CASES[case]), CAP)
+
+
+def test_three_thousand_one_slot_runs_match_jax():
+    """3000 one-slot runs (a card tile meets TILE + 1 of them), in three
+    batches of 1000 between runs of 9000 slots, so that no grid step of
+    the JAX kernel holds more runs than its metadata slab."""
+    counts = [1] * 1000 + [9000] + [1] * 1000 + [9000] + [1] * 1000
+    cols, sizes = layout(*_runs_of(counts, 5), width=WIDE_K)
+    r, s = _run_both(cols, sizes, CAP)
+    assert sizes == (3002, 21000) and (s[:1000] >= 0).all()
 
 
 def test_expand_runs_ragged_capacity_and_empty_match_jax():

@@ -3,19 +3,19 @@
 //
 //   expand_fill_kernel  slot t in run r and group g ->
 //                       (src[glo[g] + (t - goff[g]) mod gnb[g]], rsid[r])
-//                       (K5), or in its run mode slot t in row r ->
-//                       (lo[r] + t - offs[r], sid[r]) (K4)
-//   expand_runs_kernel  slot t in run r -> (src[lo[r] + t - offs[r]], sid[r])
+//                       (K5), or in a run mode, slot t in row r ->
+//                       (lo[r] + t - offs[r], sid[r]) (K4, RUNS_POS) or
+//                       (src[lo[r] + t - offs[r]], sid[r]) (K7b, RUNS_GATHER)
 //
-// K5 and K7 write -1 to both columns at t >= total. K4 has no total: a slot
-// at or past the last row's offset takes the last row, as upper_bound - 1
-// clamped to the rows gives it.
+// K5 and K7b write -1 to both columns at t >= total. K4 has no total: a
+// slot at or past the last row's offset takes the last row, as
+// upper_bound - 1 clamped to the rows gives it.
 //
 // Replaces tpujoin/kernels/expand.py: `expand` (`_kernel`, K4),
 // tpujoin/kernels/expand_fill.py: `expand_fill` (`_kernel`),
 // tpujoin/kernels/expand_groups.py: `expand_groups` (`_kernel`; the same
 // function as expand_fill, so it launches expand_fill_kernel),
-// tpujoin/kernels/expand_runs.py: `expand_runs` (`_kernel`), and
+// tpujoin/kernels/expand_runs.py: `expand_runs` (`_kernel`, K7b), and
 // exp/fill_variants.py: `expand_fill_v` (`_kernel_v`, the phase ablation
 // of expand_fill: expand_fill_kernel templated on the phases that run).
 //
@@ -54,9 +54,14 @@
 // block: K4's slots are few (~1e7), and more blocks hide more latency. The
 // TPU kernel's one-hot and masked-max reductions stood in for gathers.
 //
-// K7's runs kernel keeps the simple design: a block finds the runs of its
-// first and last slot, and each thread runs upper_bound - 1 over that
-// window.
+// K7b is the same two launches in the gather mode (RUNS_GATHER): the
+// window holds each run's offset, probe id and lo - offset, the last in 64
+// bits, and the walk writes src[lo - offset + t] beside the probe id, the
+// index taken in 64 bits (it can leave [0, n) and the i32 range). As in
+// K5 the walk ends at the total and the slots past it write -1; slots
+// before the first run's offset take the first run, as upper_bound - 1
+// clamped to the runs gives it. One tile a block, as K4: on the dense
+// state and on one-slot runs it beat K5's BLOCK_TILES (PERF.md §6).
 #include "common.cuh"
 
 namespace {
@@ -66,7 +71,7 @@ constexpr int ITEMS = 4;                    // consecutive slots per thread
 constexpr int SLOTS = THREADS * ITEMS;      // slots per block at a time
 constexpr int TILE = 2048;                  // slots of one K5 window
 constexpr int BLOCK_TILES = 16;             // tiles a K5 block takes
-constexpr int POS_BLOCK_TILES = 1;          // tiles a K4 block takes
+constexpr int RUN_BLOCK_TILES = 1;          // tiles a K4 or K7b block takes
 constexpr int PART_THREADS = 256;
 static_assert(TILE % SLOTS == 0, "a tile is whole sweeps of a block");
 
@@ -120,8 +125,9 @@ partition_kernel(const int32_t* __restrict__ roff, int64_t nruns,
 }
 
 // What expand_fill_kernel computes of the runs: nothing (the probe column
-// -1), the probe column (K5), or it and the build position (K4).
-enum RunPhase { RUNS_NONE = 0, RUNS_SID = 1, RUNS_POS = 2 };
+// -1), the probe column (K5), it and the build position (K4), or it and
+// the source id at that position (K7b).
+enum RunPhase { RUNS_NONE = 0, RUNS_SID = 1, RUNS_POS = 2, RUNS_GATHER = 3 };
 // What it computes of the build column from the groups.
 enum GroupPhase { GROUPS_NONE = 0, GROUPS_INDEX = 1, GROUPS_GATHER = 2 };
 
@@ -130,19 +136,22 @@ enum GroupPhase { GROUPS_NONE = 0, GROUPS_INDEX = 1, GROUPS_GATHER = 2 };
 constexpr int WINDOW = TILE + 2;
 
 // The words of a window: the runs' arrays where the run walk runs (two,
-// three with the build position), the groups' three where the group walk
-// does.
+// three with the build position, four with the 64-bit one of the gather),
+// the groups' three where the group walk does.
 __host__ __device__ constexpr int run_words(int runs) {
-  return (runs == RUNS_POS ? 3 : runs == RUNS_SID ? 2 : 0) * WINDOW;
+  return (runs == RUNS_GATHER ? 4 : runs == RUNS_POS ? 3
+          : runs == RUNS_SID  ? 2 : 0) * WINDOW;
 }
 __host__ __device__ constexpr int window_words(int runs, int groups) {
   return run_words(runs) + (groups ? 3 : 0) * WINDOW;
 }
-static_assert(window_words(RUNS_SID, GROUPS_GATHER) * 4 <= 48 * 1024,
+static_assert(window_words(RUNS_SID, GROUPS_GATHER) * 4 <= 48 * 1024 &&
+                  window_words(RUNS_GATHER, GROUPS_NONE) * 4 <= 48 * 1024,
               "the window fits the default shared-memory limit");
 
 // RUNS: what the run walk computes; GROUPS: what of the build column runs
-// (RUNS_SID with GROUPS_GATHER is K5, RUNS_POS with GROUPS_NONE K4). Each
+// (RUNS_SID with GROUPS_GATHER is K5, RUNS_POS with GROUPS_NONE K4,
+// RUNS_GATHER with GROUPS_NONE K7b). Each
 // block takes `tiles` tiles of `tile` slots (tile divides TILE), one at a
 // time; the partition has an entry for every tile boundary up to the last
 // tile with a slot below the end of the walk: total, or with RUNS_POS the
@@ -160,13 +169,14 @@ expand_fill_kernel(const int32_t* __restrict__ roff,
                    const int32_t* __restrict__ src, int64_t n, int64_t total,
                    int32_t* __restrict__ r_out, int32_t* __restrict__ s_out,
                    int64_t capacity, int64_t tiles, int tile) {
-  // the window: runs (offset, probe id, with RUNS_POS lo - offset), then
-  // groups (offset, slice start, period), each entry j the j-th run or
-  // group from the tile's first
-  __shared__ int32_t window[window_words(RUNS, GROUPS)];
+  // the window: runs (offset, probe id, with RUNS_POS lo - offset, with
+  // RUNS_GATHER lo - offset in 64 bits), then groups (offset, slice start,
+  // period), each entry j the j-th run or group from the tile's first
+  __shared__ __align__(8) int32_t window[window_words(RUNS, GROUPS)];
   int32_t* w_roff = window;
   int32_t* w_rsid = w_roff + WINDOW;
   int32_t* w_rbase = w_rsid + WINDOW;
+  int64_t* w_rbase64 = reinterpret_cast<int64_t*>(w_rbase);
   int32_t* w_goff = window + run_words(RUNS);
   int32_t* w_glo = w_goff + WINDOW;
   int32_t* w_gnb = w_glo + WINDOW;
@@ -194,10 +204,13 @@ expand_fill_kernel(const int32_t* __restrict__ roff,
           w_roff[j] = r < 0 ? INT32_MIN : roff[r];
           if (RUNS == RUNS_SID) {
             w_rsid[j] = r < 0 ? -1 : rsid[r];
-          } else {                         // K4 clamps to the first row
+          } else {                         // K4, K7b clamp to the first row
             const int32_t q = max(r, 0);
             w_rsid[j] = rsid[q];
-            w_rbase[j] = (int32_t)((uint32_t)rlo[q] - (uint32_t)roff[q]);
+            if (RUNS == RUNS_POS)
+              w_rbase[j] = (int32_t)((uint32_t)rlo[q] - (uint32_t)roff[q]);
+            else
+              w_rbase64[j] = (int64_t)rlo[q] - roff[q];
           }
         }
         if (threadIdx.x == 0) w_roff[nr] = INT32_MAX;
@@ -255,6 +268,7 @@ expand_fill_kernel(const int32_t* __restrict__ roff,
         int j = upper_bound_smem(w_roff, nr, s0) - 1;
         int32_t sid = w_rsid[j], next = w_roff[j + 1];
         uint32_t base = RUNS == RUNS_POS ? (uint32_t)w_rbase[j] : 0;
+        int64_t base64 = RUNS == RUNS_GATHER ? w_rbase64[j] : 0;
 #pragma unroll
         for (int i = 0; i < ITEMS; ++i) {
           if (i >= real) break;
@@ -263,9 +277,12 @@ expand_fill_kernel(const int32_t* __restrict__ roff,
             sid = w_rsid[j];
             next = w_roff[j + 1];
             if (RUNS == RUNS_POS) base = (uint32_t)w_rbase[j];
+            if (RUNS == RUNS_GATHER) base64 = w_rbase64[j];
           }
           sv[i] = sid;
           if (RUNS == RUNS_POS) rv[i] = (int32_t)(base + (uint32_t)(s0 + i));
+          if (RUNS == RUNS_GATHER)
+            rv[i] = take_or_neg(src, n, base64 + (s0 + i));
         }
       }
       store(r_out, s_out, t0, capacity, rv, sv);
@@ -314,41 +331,6 @@ int launch_fill(const int32_t* roff, const int32_t* rsid,
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(THREADS)
-expand_runs_kernel(const int32_t* __restrict__ offs,
-                   const int32_t* __restrict__ lo,
-                   const int32_t* __restrict__ sid, int64_t k,
-                   const int32_t* __restrict__ src, int64_t n, int64_t total,
-                   int32_t* __restrict__ r_out, int32_t* __restrict__ s_out,
-                   int64_t capacity) {
-  __shared__ int64_t window[2];
-  const int64_t first = (int64_t)blockIdx.x * SLOTS;
-  const int64_t last = min(first + SLOTS, total) - 1;
-  if (first <= last) {
-    if (threadIdx.x == 0)
-      window[0] = tj::upper_bound(offs, 0, k, (int32_t)first);
-    if (threadIdx.x == 32)
-      window[1] = tj::upper_bound(offs, 0, k, (int32_t)last);
-  }
-  __syncthreads();
-  const int64_t t0 = first + (int64_t)threadIdx.x * ITEMS;
-  if (t0 >= capacity) return;
-  int32_t rv[ITEMS], sv[ITEMS];
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const int64_t t = t0 + i;
-    rv[i] = sv[i] = -1;
-    if (t > last || k <= 0) continue;
-    int64_t r = tj::upper_bound(offs, window[0], window[1], (int32_t)t) - 1;
-    r = min(max(r, (int64_t)0), k - 1);
-    rv[i] = take_or_neg(src, n, (int64_t)lo[r] + (t - offs[r]));
-    sv[i] = sid[r];
-  }
-  store(r_out, s_out, t0, capacity, rv, sv);
-}
-
-int64_t blocks_for(int64_t capacity) { return (capacity + SLOTS - 1) / SLOTS; }
-
 }  // namespace
 
 // Caller guarantees: 0 <= nruns <= len(roff), 0 <= ngroups <= len(goff),
@@ -382,7 +364,7 @@ extern "C" int tj_expand(const int32_t* offs, const int32_t* lo,
   if (k <= 0) return (int)cudaErrorInvalidValue;
   return launch_fill<RUNS_POS, GROUPS_NONE>(
       offs, sid, lo, k, nullptr, nullptr, nullptr, 0, nullptr, 0, capacity,
-      bpos, sid_out, capacity, parts, nparts, POS_BLOCK_TILES * TILE, stream);
+      bpos, sid_out, capacity, parts, nparts, RUN_BLOCK_TILES * TILE, stream);
 }
 
 // expand_fill_v: K5's kernels with `step` slots a block and the phases of
@@ -417,15 +399,20 @@ extern "C" int tj_expand_fill_v(const int32_t* roff, const int32_t* rsid,
 #undef TJ_LAUNCH
 }
 
-// Caller guarantees: 0 <= k <= len(offs), 0 <= total < 2^31, outputs
-// 16-byte aligned with capacity slots.
+// K7b. Caller guarantees: 0 <= k <= len of each of offs, lo and sid, the
+// first k offsets strictly increasing, 0 <= total < 2^31, outputs 16-byte
+// aligned with capacity slots; `parts` 2 x nparts i32 scratch, nparts at
+// least ceil(min(total, capacity) / TILE) + 1. With no run every slot is
+// -1.
 extern "C" int tj_expand_runs(const int32_t* offs, const int32_t* lo,
                               const int32_t* sid, int64_t k,
                               const int32_t* src, int64_t n, int64_t total,
                               int32_t* r_out, int32_t* s_out, int64_t capacity,
+                              int32_t* parts, int64_t nparts,
                               cudaStream_t stream) {
   if (capacity <= 0) return 0;
-  expand_runs_kernel<<<(unsigned)blocks_for(capacity), THREADS, 0, stream>>>(
-      offs, lo, sid, k, src, n, total, r_out, s_out, capacity);
-  return (int)cudaGetLastError();
+  return launch_fill<RUNS_GATHER, GROUPS_NONE>(
+      offs, sid, lo, k, nullptr, nullptr, nullptr, 0, src, n,
+      k > 0 ? total : 0, r_out, s_out, capacity, parts, nparts,
+      RUN_BLOCK_TILES * TILE, stream);
 }

@@ -35,12 +35,12 @@ _SIGNATURES = {
     "tj_sort_pass": (P, P, P, P, I64, I64, P, P, I64, P),
     "tj_merge_count": (P, I64, P, I64, P, P, P, I64, P),
     "tj_compact_count": (P, I64, I64, P, P),
-    "tj_compact_ids": (P, I64, I64, P, P, P, I64, P),
+    "tj_compact_ids": (P, I64, I64, P, I64, P, I64, P, P),
     "tj_compact_cols": (P, I64, I64, P, P, I64, P, P, I64, P),
     "tj_expand": (P, P, P, I64, P, P, I64, P, I64, P),
     "tj_expand_fill": (P, P, I64, P, P, P, I64, P, I64, I64, P, P, I64, P, I64,
                        P),
-    "tj_expand_runs": (P, P, P, I64, P, I64, I64, P, P, I64, P),
+    "tj_expand_runs": (P, P, P, I64, P, I64, I64, P, P, I64, P, I64, P),
     "tj_stream_scale": (P, P, I64, P),
     "tj_smem_gather": (P, I64, P, P, I64, P),
     "tj_carry_scan": (P, P, I64, P, I64, P),
@@ -63,6 +63,11 @@ _SIGNATURES = {
     "tj_mosaic_sublane_roll": (P, P, P, P),
     "tj_mosaic_row_dma_2d": (P, P, P, P),
     "tj_mosaic_flat_rotate": (P, P, P, P),
+}
+# argtypes of the host-side size queries, which return an int64 and launch
+# nothing
+_SIZES = {
+    "tj_compact_ids_scratch_words": (P, I64, I64),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -144,6 +149,10 @@ def lib() -> ctypes.CDLL:
             fn = getattr(loaded, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+        for name, argtypes in _SIZES.items():
+            fn = getattr(loaded, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int64
         loaded.tj_error_string.argtypes = [ctypes.c_int]
         loaded.tj_error_string.restype = ctypes.c_char_p
         _lib = loaded
@@ -159,6 +168,11 @@ def call(name: str, device: torch.device, *args) -> None:
     if err != 0:
         msg = lib().tj_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def size(name: str, *args) -> int:
+    """The answer of size query ``name`` (an entry of ``_SIZES``)."""
+    return getattr(lib(), name)(*args)
 
 
 def check_cuda_i32(*tensors: torch.Tensor) -> None:

@@ -8,11 +8,14 @@ compaction of the rows whose mask is set, at width ``k_cap``:
   compact3      (K3)   (lo, cnt, sid) under cnt > 0, zero tail: the
                        NCOLS = 3 case of K6b's kernel.
 
-A mask is bool (set when True) or int32 (set when > 0). The kernel path is
-a count pass, ``torch.cumsum`` of the block counts and a scatter pass; the
-result always fits, so there is no ``fits`` flag, and ``nonzero`` stays a
-0-d int64 tensor on the device. A CUDA tensor goes through the kernels, a
-CPU tensor through the ``*_plain`` version; anything else raises.
+A mask is bool (set when True) or int32 (set when > 0). On the card K6a
+is one scan with a decoupled look-back that reads the mask once (a memset
+of its status words, the scan, and a launch for the -1 tail); K3 and K6b
+are a count pass, ``torch.cumsum`` of the block counts and a scatter pass.
+The result always fits, so there is no ``fits`` flag, and ``nonzero``
+stays a 0-d int64 tensor on the device. A CUDA tensor goes through the
+kernels, a CPU tensor through the ``*_plain`` version; anything else
+raises.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 from tpujoin_torch.kernels import _build
 from tpujoin_torch.utils.shapes import cdiv
 
-BLOCK_ROWS = 1024   # rows per block of both passes (BLOCK_ROWS in the .cu)
+BLOCK_ROWS = 1024   # rows per block of K3's and K6b's two passes
 MAX_COLS = 8        # the most columns one compact_cols launch takes
 LAUNCHES = 0        # compact3's scatter launches (each follows one count)
 IDS_LAUNCHES = 0    # compact_ids's
@@ -97,20 +100,25 @@ def _offsets(mask: torch.Tensor, mask_i32: int):
 def compact_ids(mask: torch.Tensor, k_cap: int):
     """(ids, nonzero): the ascending row ids of the set mask rows, the
     first k_cap of them, -1 from slot nonzero on; ``nonzero`` is the
-    number of set rows (0-d int64)."""
+    number of set rows (0-d int64). The mask may be a view starting at
+    any row."""
     global IDS_LAUNCHES
     if _build.on_cpu(mask):
         return compact_ids_plain(mask, k_cap)
     mask_i32 = _mask_i32(mask, mask.device)
     out = torch.empty(k_cap, dtype=torch.int32, device=mask.device)
-    if mask.shape[0] == 0:
+    n = mask.shape[0]
+    if n == 0:
         return out.fill_(-1), out.new_zeros((), dtype=torch.int64)
-    offsets, total = _offsets(mask, mask_i32)
-    _build.call("tj_compact_ids", mask.device, mask.data_ptr(), mask_i32,
-                mask.shape[0], offsets.data_ptr(), total.data_ptr(),
-                out.data_ptr(), k_cap)
+    words = _build.size("tj_compact_ids_scratch_words", mask.data_ptr(),
+                        mask_i32, n)
+    scratch = torch.empty(words, dtype=torch.int64, device=mask.device)
+    nonzero = torch.empty((), dtype=torch.int64, device=mask.device)
+    _build.call("tj_compact_ids", mask.device, mask.data_ptr(), mask_i32, n,
+                scratch.data_ptr(), words, out.data_ptr(), k_cap,
+                nonzero.data_ptr())
     IDS_LAUNCHES += 1
-    return out, total[0]
+    return out, nonzero
 
 
 def _launch_cols(mask: torch.Tensor, cols, k_cap: int):

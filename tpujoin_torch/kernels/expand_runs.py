@@ -7,14 +7,19 @@ total on. That is K4 with the gather of the sorted build ids fused in. A
 CUDA tensor goes through the kernel, a CPU tensor through
 :func:`expand_runs_plain`; anything else raises. The TPU kernel's slabs,
 its ``fits`` flag and the run lengths its fit plan read are gone.
+
+On the card one call is two launches, K5's kernels in their gather mode:
+the partition pass, which finds each tile's first run, into a scratch the
+wrapper allocates (``expand_fill.partition_scratch``), and the fill
+kernel walking the runs from a shared-memory window, one tile a block.
 """
 from __future__ import annotations
 
 import torch
 
 from tpujoin_torch.kernels import _build
-from tpujoin_torch.kernels.expand_fill import (check_sizes, slot_chunks,
-                                               take_or_neg)
+from tpujoin_torch.kernels.expand_fill import (check_sizes, partition_scratch,
+                                               slot_chunks, take_or_neg)
 
 LAUNCHES = 0
 
@@ -52,9 +57,10 @@ def expand_runs(offsets: torch.Tensor, lo: torch.Tensor, sid: torch.Tensor,
     s_ids = torch.empty_like(r_vals)
     _build.check_cuda_i32(offsets, lo, sid, src, r_vals, s_ids)
     if capacity:
+        parts, rows = partition_scratch(total, capacity, r_vals.device)
         _build.call("tj_expand_runs", r_vals.device, offsets.data_ptr(),
                     lo.data_ptr(), sid.data_ptr(), nonzero, src.data_ptr(),
                     src.shape[0], total, r_vals.data_ptr(), s_ids.data_ptr(),
-                    capacity)
+                    capacity, parts.data_ptr(), rows)
         LAUNCHES += 1
     return r_vals, s_ids
