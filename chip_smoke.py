@@ -70,6 +70,24 @@ Phases, one line each (details on stderr):
               oracle and the CPU path, and filter_table, group_by_count and
               group_by_agg on the card by default against the CPU path;
               each run's kernels' launch counters above 0;
+     dist     the distributed programs (tpujoin_torch.parallel) on a
+              4-shard in-process mesh on the card, K1-K4 launched in each
+              join: the plain program with auto caps and the pipelined one
+              (2 chunks) at ref_low_selectivity's full size against
+              merge_join's pairs by the multiset checksum, each timed
+              beside merge_join; distributed semi and anti joins against
+              semi_join's and anti_join's ids bitwise; the RLE program at
+              zipf_skew's full size (511,825,377,212 pairs, as
+              merge_join_rle's), every shard's runs through the native RLE
+              oracle and each shard's first 2^20 pairs, materialized on K3
+              and K4, against its runs' window checksum; the skew program
+              on Zipf(1.0) keys at the most rows whose pairs stay <= 1e9,
+              against merge_join's pairs, with the rows each shard
+              receives, split on and off; the plain program on a real NCCL
+              process group of world size 1 in this process, then the
+              group destroyed; dryrun_multichip(8); the CLI's distributed
+              and join_v2 subcommands with --verify at 1M rows, as
+              subprocesses;
   8. probes   the probe kernels against their plain versions on the probe
               programs' own inputs, bitwise and timed: stream_scale on
               bench/primitives.py's 99,614,720 rows and on the i32
@@ -129,18 +147,21 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 import tpujoin_torch
-from tpujoin_torch import bench, merge_join, oracle
+from tpujoin_torch import bench, merge_join, merge_join_rle, oracle
 from tpujoin_torch.core import datagen
 from tpujoin_torch.core import io as table_io
+from tpujoin_torch.dryrun import dryrun_multichip
 from tpujoin_torch.kernels import (_build, carry_scan, compact, expand,
                                    expand_fill, expand_groups, expand_runs,
                                    fill_phases, flat_roll, forward_fill,
@@ -152,14 +173,20 @@ from tpujoin_torch.ops import aggregate as agg
 from tpujoin_torch.ops import hash_join as hj
 from tpujoin_torch.ops import merge_join as mj
 from tpujoin_torch.ops.hash_join import build
+from tpujoin_torch.parallel import multihost, skew
+from tpujoin_torch.parallel import shuffle_join as sj
+from tpujoin_torch.parallel.mesh import make_mesh
 from tpujoin_torch.probes import (bench_mat2, count_variants, fill_variants,
                                   primitives, probe_fill, probe_flatroll,
                                   probe_mosaic, probe_mosaic2, probe_mosaic3,
                                   probe_opcost, profile_expand_runs,
                                   roll_cost)
+from tpujoin_torch.utils import verify
 from tpujoin_torch.utils.hw import hbm_peak_gbps
 from tpujoin_torch.utils.shapes import round_up
+from tpujoin_torch.utils.timing import time_fn
 
+REPO = Path(__file__).resolve().parent
 IMAX = 2**31 - 1
 OP_ROWS = 100_000_000        # the filter's and the aggregate's rows
 # the ops phase's verified aggregate, cut from OP_ROWS to hold the wall as
@@ -1578,6 +1605,209 @@ def mosaic_phase(dev, results: dict) -> None:
         torch.cuda.empty_cache()
 
 
+DIST_SHARDS = 4              # the dist phase's in-process mesh on the card
+DIST_PATH = ("sort_histogram", "sort_pass", "merge_count", "compact3",
+             "expand")
+ZIPF_PAIRS = 511_825_377_212  # zipf_skew's pairs (PERF.md section 4)
+SKEW_PAIRS = 10**9           # the skew step's pair budget: ref_high's
+CLI_ROWS = 1_000_000
+
+
+def pair_sum(r, s, dev) -> int:
+    """The multiset checksum of numpy pair columns, reduced on the card."""
+    r, s = (torch.from_numpy(np.ascontiguousarray(c)).to(dev) for c in (r, s))
+    return verify.device_multiset_sum(r, s, r.shape[0])
+
+
+def host_ms(fn, dev) -> float:
+    """The least of 3 synchronized host-clock runs after a warm-up, in ms."""
+    return time_fn(fn, device=dev).seconds * 1e3
+
+
+def dist_rle_phase(dev, mesh) -> int:
+    """The RLE program at zipf_skew's full size against merge_join_rle;
+    every shard's runs by the native RLE oracle, and each shard's first
+    2^20 pairs, materialized on K3 and K4, by the window checksum of its
+    runs. Returns the pair count."""
+    cfg = bench.scaled_config("zipf_skew")
+    bk, pk = bench.config_keys(cfg, dev)
+    (shards, total), launches = _counted(
+        lambda: sj.distributed_hash_join_rle(bk, pk, mesh=mesh),
+        DIST_PATH[:3], "the RLE program")
+    single = int(merge_join_rle(bk, pk)[2].sum(dtype=np.int64))
+    if not total == single == ZIPF_PAIRS:
+        raise AssertionError(f"RLE program: {total} pairs, merge_join_rle "
+                             f"{single}, expected {ZIPF_PAIRS}")
+    runs, base = [], 0
+    w = verify.VERIFY_WINDOW
+    for sh in shards:
+        keep = (sh["cnt"] > 0) & (sh["probe_ids"] >= 0)
+        sid, lo, cnt = (sh[k][keep] for k in ("probe_ids", "lo", "cnt"))
+        runs.append((sh["build_ids"], sid, lo + base, cnt))
+        base += len(sh["build_ids"])
+        shard_total = int(cnt.sum(dtype=np.int64))
+        r, s, _ = sj._materialize_counted(
+            *(torch.from_numpy(sh[k]).to(dev) for k in
+              ("build_ids", "probe_ids", "lo", "cnt")), w)
+        got = verify.window_checksums(r, s, min(shard_total, w), 1)
+        want = verify.expected_checksums(sh["build_ids"], sid, lo, cnt,
+                                         min(shard_total, w), 1)[:2]
+        if not all(np.array_equal(g, x) for g, x in zip(got, want)):
+            raise AssertionError("RLE program: a shard's first window "
+                                 "differs from its runs")
+    if oracle.check_join_rle(bk, pk, *(np.concatenate(c) for c in
+                                       zip(*runs))) != 1:
+        raise AssertionError("RLE program: the shards' runs fail the RLE "
+                             "oracle")
+    say("dist", f"RLE, zipf_skew {cfg.build_rows} x {cfg.probe_rows}: "
+        f"{total} pairs = merge_join_rle's; every shard's runs pass the "
+        f"native RLE oracle, each shard's first window its checksum "
+        f"(shard pairs " + ", ".join(str(int(sh['cnt'].sum(dtype=np.int64)))
+                                     for sh in shards)
+        + f"); launches " + ", ".join(f"{k} {launches[k]}"
+                                      for k in DIST_PATH[:3]))
+    return total
+
+
+def dist_skew_phase(dev, mesh, zipf_pairs: int) -> None:
+    """The skew program on Zipf(1.0) keys at the largest rows a side whose
+    pairs, read from the RLE program, stay at or below SKEW_PAIRS; its
+    pairs against merge_join's by the multiset checksum, and the rows each
+    shard receives with the skew split on and off."""
+    full = bench.scaled_config("zipf_skew")
+    rows, pairs = full.build_rows, zipf_pairs
+    while pairs > SKEW_PAIRS:       # pairs grow as the rows squared
+        rows = int(rows * math.sqrt(SKEW_PAIRS / pairs) * 0.999)
+        cfg = bench.scaled_config("zipf_skew", rows / full.build_rows)
+        bk, pk = bench.config_keys(cfg, dev)
+        pairs = sj.distributed_hash_join_rle(bk, pk, mesh=mesh)[1]
+    (r, s), launches = _counted(
+        lambda: sj.distributed_hash_join(bk, pk, mesh=mesh, skew=True,
+                                         expected_matches=pairs),
+        DIST_PATH, "the skew program")
+    got = (len(r), pair_sum(r, s, dev))
+    del r, s
+    r, s = merge_join(bk, pk)
+    if got != (len(r), pair_sum(r, s, dev)) or got[0] != pairs:
+        raise AssertionError("skew program: not merge_join's pairs")
+    del r, s
+    loads = {on: skew.shard_rows(bk, pk, mesh=mesh, skew=on)
+             for on in (True, False)}
+    say("dist", f"skew, Zipf(1.0) over [1, 1e6], {cfg.build_rows} x "
+        f"{cfg.probe_rows} (the most rows whose pairs stay <= "
+        f"{SKEW_PAIRS}): {pairs} pairs, the multiset checksum of "
+        f"merge_join's; received rows a shard, split on: max "
+        f"{loads[True].max()}, mean {loads[True].mean():.1f}; split off: "
+        f"max {loads[False].max()}, mean {loads[False].mean():.1f}; "
+        f"launches " + ", ".join(f"{k} {launches[k]}" for k in DIST_PATH))
+
+
+def dist_nccl_phase(dev, bk, pk, want) -> None:
+    """The plain program on a real NCCL process group of world size 1 in
+    this process (a TCPStore on 127.0.0.1), then the group destroyed."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
+                         num_processes=1, process_id=0)
+    try:
+        mesh = multihost.make_global_mesh()
+        if (mesh.group is None or mesh.size != 1
+                or torch.distributed.get_backend() != "nccl"):
+            raise AssertionError(f"not an NCCL world of one: {mesh}")
+        (r, s), launches = _counted(
+            lambda: sj.distributed_hash_join(bk, pk, mesh=mesh,
+                                             expected_matches=want[0]),
+            DIST_PATH, "the NCCL world-1 join")
+        if (len(r), pair_sum(r, s, dev)) != want:
+            raise AssertionError("NCCL world-1 join: not merge_join's pairs")
+        ms = host_ms(lambda: sj.distributed_hash_join(
+            bk, pk, mesh=mesh, expected_matches=want[0]), dev)
+    finally:
+        torch.distributed.destroy_process_group()
+    say("dist", f"NCCL process group, world 1, {len(bk)} x {len(pk)}: "
+        f"{want[0]} pairs, merge_join's multiset; {ms:.3f} ms; launches "
+        + ", ".join(f"{k} {launches[k]}" for k in DIST_PATH)
+        + "; group destroyed")
+
+
+def dist_phase(dev, scale: float) -> None:
+    """The distributed programs (tpujoin_torch.parallel) on the card: a
+    DIST_SHARDS-shard in-process mesh (each collective a copy on the card)
+    at ref_low_selectivity's full size, plain with auto caps and
+    pipelined, against merge_join's pairs by the multiset checksum, semi
+    and anti against semi_join's and anti_join's ids; RLE at zipf_skew's;
+    skew on Zipf keys; a real NCCL group of one; the six-program dry run;
+    the CLI in subprocesses. K1-K4 must launch on each join."""
+    mesh = make_mesh(DIST_SHARDS, device=dev)
+    cfg = bench.scaled_config("ref_low_selectivity", scale)
+    bk, pk = bench.config_keys(cfg, dev)
+    r, s = merge_join(bk, pk)
+    want = (len(r), pair_sum(r, s, dev))
+    del r, s
+
+    def plain(**kw):
+        return sj.distributed_hash_join(bk, pk, mesh=mesh,
+                                        expected_matches=want[0], **kw)
+
+    for name, kw in (("plain, auto caps", {}),
+                     ("pipelined, 2 chunks", {"pipeline_chunks": 2})):
+        (r, s), launches = _counted(lambda: plain(**kw), DIST_PATH, name)
+        if (len(r), pair_sum(r, s, dev)) != want:
+            raise AssertionError(f"{name}: not merge_join's pairs")
+        del r, s
+        ms, single = host_ms(lambda: plain(**kw), dev), host_ms(
+            lambda: merge_join(bk, pk), dev)
+        say("dist", f"{name}, {DIST_SHARDS} in-process shards, "
+            f"{cfg.build_rows} x {cfg.probe_rows}: {want[0]} pairs, the "
+            f"multiset checksum of merge_join's; {ms:.3f} ms against "
+            f"merge_join's {single:.3f} ms on the same card (the shards "
+            f"run one after another: no scaling figure); launches "
+            + ", ".join(f"{k} {launches[k]}" for k in DIST_PATH))
+
+    for name in ("semi_join", "anti_join"):
+        got = getattr(sj, f"distributed_{name}")(bk, pk, mesh=mesh)
+        if not np.array_equal(got, getattr(tpujoin_torch, name)(bk, pk)):
+            raise AssertionError(f"distributed {name} differs")
+        say("dist", f"distributed {name}: {len(got)} ids, "
+            f"{name}'s bitwise")
+
+    zipf_pairs = dist_rle_phase(dev, mesh)
+    dist_skew_phase(dev, mesh, zipf_pairs)
+    dist_nccl_phase(dev, bk, pk, want)
+    del bk, pk
+    torch.cuda.empty_cache()
+
+    _, launches = _counted(lambda: dryrun_multichip(8, device=dev),
+                           DIST_PATH, "the dry run")
+    say("dist", "dryrun_multichip(8): the six programs exact; launches "
+        + ", ".join(f"{k} {launches[k]}" for k in DIST_PATH))
+
+    rows = ["--build-rows", str(CLI_ROWS), "--probe-rows", str(CLI_ROWS),
+            "--verify", "--device", dev.type]
+    cmds = [["distributed", "--devices", str(DIST_SHARDS), *rows],
+            ["join_v2", *rows]]
+    procs = [subprocess.Popen([sys.executable, "-m", "tpujoin_torch.cli",
+                               *cmd], cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode != 0 or "success: 1" not in out:
+                raise AssertionError(f"cli {cmd[0]} exited "
+                                     f"{proc.returncode}: {out}{err[-2000:]}")
+            rows_line = next(x for x in out.splitlines()
+                             if x.startswith("result rows"))
+            say("dist", f"python -m tpujoin_torch.cli {cmd[0]} at "
+                f"{CLI_ROWS} rows --verify: exit 0, {rows_line}, success 1")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def check_dense_slice(out: dict) -> None:
     """The dense slice materialized every pair on fill and checked each."""
     if out.get("pair_kernel") != "fill":
@@ -1682,6 +1912,7 @@ def main(argv=None) -> int:
         lambda: split_phase(dev, args.scale),
         lambda: tables_phase(dev),
         lambda: ops_phase(dev, results),
+        lambda: dist_phase(dev, args.scale),
         lambda: probes_phase(dev, results),
         lambda: variants_phase(dev, results),
         lambda: costs_phase(dev, results),

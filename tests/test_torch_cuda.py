@@ -979,3 +979,74 @@ def test_pushdown_compact3_on_card_matches_cpu(keep):
         return
     assert compact.LAUNCHES == before + 1
     _equal(got, tuple(w.cuda() for w in want))
+
+
+def _dist_keys(n: int, dom: int, seed: int):
+    rng = np.random.default_rng(seed)
+    rk = rng.integers(1, dom + 1, n).astype(np.int32)
+    sk = rng.integers(1, dom + 1, n + 7).astype(np.int32)
+    rk[: n // 3] = 3                  # a heavy key for the skew split
+    return rk, sk
+
+
+@pytest.mark.parametrize("program", ["plain", "pipelined", "skew", "rle",
+                                     "semi", "anti"])
+def test_distributed_program_on_card_matches_cpu(program):
+    """Each distributed program on a 4-shard in-process mesh on the card,
+    bitwise the same program on a 4-shard CPU mesh (K1 is stable on both,
+    so even the pair order agrees), its K1-K4 launched."""
+    from tpujoin_torch.parallel import shuffle_join as sj
+    from tpujoin_torch.parallel.mesh import make_mesh
+    rk, sk = _dist_keys(200_003, 50_000, 1)
+    run = {
+        "plain": lambda mesh: sj.distributed_hash_join(rk, sk, mesh=mesh),
+        "pipelined": lambda mesh: sj.distributed_hash_join(
+            rk, sk, mesh=mesh, pipeline_chunks=3),
+        "skew": lambda mesh: sj.distributed_hash_join(rk, sk, mesh=mesh,
+                                                      skew=True),
+        "rle": lambda mesh: sj.distributed_hash_join_rle(rk, sk, mesh=mesh),
+        "semi": lambda mesh: (sj.distributed_semi_join(rk, sk, mesh=mesh),),
+        "anti": lambda mesh: (sj.distributed_anti_join(rk, sk, mesh=mesh),),
+    }[program]
+    before = merge_count.LAUNCHES
+    got = run(make_mesh(4, device="cuda"))
+    want = run(make_mesh(4, device="cpu"))
+    assert merge_count.LAUNCHES >= before + 4
+    if program == "rle":
+        assert got[1] == want[1] == oracle.join_count(rk, sk)
+        for g, w in zip(got[0], want[0], strict=True):
+            for key in ("probe_ids", "lo", "cnt", "build_ids"):
+                np.testing.assert_array_equal(g[key], w[key])
+        return
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, w)
+    if program in ("plain", "pipelined", "skew"):
+        assert oracle.check_join(rk, sk, *got) == 1
+
+
+def test_distributed_join_on_an_nccl_group_of_one():
+    """The plain program on a real NCCL process group of world size 1
+    (every collective called), bitwise the in-process CPU mesh's."""
+    import socket
+
+    import torch.distributed as dist
+    from tpujoin_torch.parallel import multihost
+    from tpujoin_torch.parallel.mesh import make_mesh
+    from tpujoin_torch.parallel.shuffle_join import distributed_hash_join
+    rk, sk = _dist_keys(100_000, 30_000, 2)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
+                         num_processes=1, process_id=0)
+    try:
+        mesh = multihost.make_global_mesh()
+        assert dist.get_backend() == "nccl" and mesh.group is not None
+        assert mesh.size == 1 and mesh.device.type == "cuda"
+        got = distributed_hash_join(rk, sk, mesh=mesh, pipeline_chunks=2)
+    finally:
+        dist.destroy_process_group()
+    want = distributed_hash_join(rk, sk, mesh=make_mesh(1, device="cpu"),
+                                 pipeline_chunks=2)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, w)

@@ -17,9 +17,10 @@ from tpujoin import oracle as jax_oracle
 from tpujoin.utils import shapes as jax_shapes
 from tpujoin_torch import bench, oracle, profile
 from tpujoin_torch.core import config, datagen
-from tpujoin_torch.probes import (bench_mat2, count_variants, fill_variants,
-                                  primitives, probe_fill, probe_flatroll,
-                                  probe_mosaic, probe_mosaic2, probe_mosaic3,
+from tpujoin_torch.probes import (bench_mat2, count_variants, dist_bench,
+                                  fill_variants, primitives, probe_fill,
+                                  probe_flatroll, probe_mosaic,
+                                  probe_mosaic2, probe_mosaic3,
                                   probe_opcost, profile_expand_runs,
                                   roll_cost)
 from tpujoin_torch.utils import hw, shapes, timing
@@ -129,7 +130,9 @@ def _run(args, cwd=REPO):
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None\n"
             "import tpujoin_torch, tpujoin_torch.bench, tpujoin_torch.oracle, "
-            "tpujoin_torch.profile\n"
+            "tpujoin_torch.profile, tpujoin_torch.cli, tpujoin_torch.dryrun\n"
+            "from tpujoin_torch.parallel import mesh, multihost, "
+            "shuffle_join, skew\n"
             "from tpujoin_torch.kernels import _build, carry_scan, compact, "
             "expand, expand_fill, expand_groups, expand_runs, fill_phases, "
             "flat_roll, forward_fill, merge_count, merge_sort, mosaic, "
@@ -138,7 +141,7 @@ def test_port_imports_without_jax():
             "from tpujoin_torch.probes import bench_mat2, count_variants, "
             "fill_variants, primitives, probe_fill, probe_flatroll, "
             "probe_mosaic, probe_mosaic2, probe_mosaic3, probe_opcost, "
-            "profile_expand_runs, roll_cost\n"
+            "profile_expand_runs, roll_cost, dist_bench\n"
             "from tpujoin_torch.ops import aggregate, filter, hash_join, "
             "merge_join, multi_join, nested_loop_join, radix, sort, "
             "table_join\n"
@@ -178,6 +181,7 @@ def test_gpu_entry_points_refuse_without_cuda(tmp_path):
         assert profile.main(["--op", op, "--rows", "1000"]) == 1
     assert profile.main(["--engine", "v1", "--scale", "0.001"]) == 1
     assert primitives.main(["--rows", "1000"]) == 1
+    assert dist_bench.main(["--rows-per-device", "1000"]) == 1
     assert bench_mat2.main(["pscan", "--n", "4096"]) == 1
     assert count_variants.main(["--scale", "0.0001"]) == 1
     assert fill_variants.main(["--groups", "2"]) == 1
@@ -215,6 +219,8 @@ ENTRY_POINTS = {
         r_pred_col="k", **kw),
     "join_tables": lambda **kw: tpujoin_torch.join_tables(
         {"key": _KEYS}, {"key": _KEYS}, **kw),
+    "distributed_hash_join": lambda **kw: (
+        tpujoin_torch.distributed_hash_join(_KEYS, _KEYS, **kw)),
 }
 
 
@@ -230,9 +236,8 @@ def test_entry_points_default_to_the_card(name):
     ENTRY_POINTS[name](device="cpu")
 
 
-def test_public_api_is_jax_s_but_the_distributed_join():
-    assert set(tpujoin_torch.__all__) == (set(tpujoin.__all__)
-                                          - {"distributed_hash_join"})
+def test_public_api_is_jax_s():
+    assert set(tpujoin_torch.__all__) == set(tpujoin.__all__)
     for name in tpujoin_torch.__all__:
         assert getattr(tpujoin_torch, name) is not None
 

@@ -6,8 +6,10 @@ high-selectivity paths, with the factorized (RLE) result beside the pair
 columns, and so does the v1 searchsorted join; so do the semi, anti and
 left-outer joins, the multi-column join with filter pushdown, the table
 joins and table I/O, the filter, the group-by aggregate and the
-nested-loop join. Their hot steps are CUDA kernels written for ``sm_90a``
-(``csrc/``), built with nvcc at first use. The entry points run on CUDA
+nested-loop join, and the distributed shuffle join over a row mesh of
+shards (``parallel/``: in one process, or one rank a card over
+``torch.distributed``). Their hot steps are CUDA kernels written for
+``sm_90a`` (``csrc/``), built with nvcc at first use. The entry points run on CUDA
 unless given ``device="cpu"`` or CPU tensors, which take each kernel's
 plain PyTorch version instead.
 """
@@ -24,9 +26,10 @@ from tpujoin_torch.ops.multi_join import hash_join_multi, join_with_pushdown
 from tpujoin_torch.ops.nested_loop_join import nested_loop_join
 from tpujoin_torch.ops.sort import sort_by_key
 from tpujoin_torch.ops.table_join import join_tables
+from tpujoin_torch.parallel import distributed_hash_join
 
 __all__ = ["HashJoinTable", "JoinConfig", "PRESETS", "Table", "anti_join",
-           "filter_table", "group_by_agg", "group_by_count", "hash_join",
-           "hash_join_multi", "join_tables", "join_with_pushdown",
+           "distributed_hash_join", "filter_table", "group_by_agg",
+           "group_by_count", "hash_join", "hash_join_multi", "join_tables", "join_with_pushdown",
            "left_outer_join", "merge_join", "merge_join_rle",
            "nested_loop_join", "semi_join", "sort_by_key"]
