@@ -101,7 +101,8 @@ Phases, one line each (details on stderr):
               their programs' own full-size inputs, bitwise and timed:
               merge_count_v, every strategy, on the count_variants
               program's sorted keys (ref_low, 100M x 100M in [1, 1e9], with
-              K2 merge_count timed on the same keys, and ref_high),
+              its library call, two torch.searchsorted, and K2 merge_count
+              timed on the same keys, and ref_high),
               expand_fill_v, every variant, on fill_variants' 999,100,000
               slots, run_variant, every variant, on profile_expand_runs'
               100M slots, and fill_forward at steps 16K, 32K and 64K on
@@ -110,16 +111,20 @@ Phases, one line each (details on stderr):
               for its program's run;
  10. costs    the cost-probe kernels against their plain versions at their
               programs' full sizes, bitwise and timed: op_chain, every kind
-              at R = 16, 64, 256 and 512 (64 ops, 512 repetitions), the row
-              kinds again at 5 ops where 64 are the identity, a folding
-              guard (128 ops against 64, and 512 repetitions against 256,
-              must take >= 1.5x the time), and at R = 256 roll_sub, the
-              kernels line's entry, the plain version over all 512
-              repetitions and torch.roll by the composed shift; select_chain on 2^28 rows, every R and op count of
-              the program; flat_roll on 2^28 rows at rolls 1, 4, 10 and 20,
-              and at shifts around the tile, negative and i32-large; then
-              the three programs at full size, each kernel's launch counter
-              above 0 for its program's run;
+              at R = 16, 64, 256 and 512 (64 ops, 512 repetitions), every
+              kind again at 5 ops (at 64 the row kinds are the identity
+              for R <= 64), each time an op beside its bound at one SM's
+              share (two at R = 512) and a roll's beside the design's
+              shuffle floor, a folding guard at R = 16, 256 and 512 (128
+              ops against 64, and 512 repetitions against 256, must take
+              >= 1.5x the time), and at R = 256 roll_sub, the kernels
+              line's entry, the plain version over all 512 repetitions and
+              torch.roll by the composed shift; select_chain on 2^28 rows,
+              every R and op count of the program; flat_roll on 2^28 rows
+              at rolls 1, 4, 10 and 20, and at shifts around the tile,
+              negative and i32-large; then the three programs at full
+              size, each kernel's launch counter above 0 for its program's
+              run;
  11. mosaic   the ten capability-probe kernels (roll, smem_dyn, vmem_dyn,
               fori, smem_block, hbm_to_smem, dyn_vec_load, sublane_roll,
               row_dma_2d, flat_rotate; hbm_to_smem a TMA copy) against
@@ -197,6 +202,7 @@ PRIMITIVE_ROWS = 100_000_000  # bench/primitives.py's N
 CHUNK = 1 << 26              # elements per step of the kernel/plain compare
 HOLD_MS = 10.0               # the device-side wait before each timed run
 HOLD_DOUBLINGS = 4           # longer holds tried before a run is flagged
+PROFILE_TRIES = 3            # traces tried while none has a device row
 # the data sheet's fp32 rate outside the tensor cores: it lists no i32
 # rate, and these kernels' compares and adds are i32
 OPS_PER_S = 67e12
@@ -310,31 +316,36 @@ def kernel_ms(fn, names: tuple, reps: int = 5) -> dict:
     least over ``reps`` runs of ``fn`` under torch.profiler (device rows
     only). Raises if one of them did not run.
 
-    Call it only before the matrix phase. After the matrix, v1, split and
-    tables phases had run, a call on K6a saw no device row of its kernels
-    on an NVIDIA H100 80GB HBM3 (700.00 W), while the same call in a fresh
-    process, and every call before the matrix, saw them; the cause is not
-    known (PERF.md §7)."""
+    A trace with no device row at all is taken again, up to PROFILE_TRIES
+    times. Such traces came on an NVIDIA H100 80GB HBM3 (700.00 W): after
+    the matrix, v1, split and tables phases had run, for K6a, where the
+    same call in a fresh process saw its kernels, and once in the k6 phase
+    after six calls that saw theirs; the cause is not known (PERF.md §7).
+    So call it before the matrix phase."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if device:
+            break
+        say("timing", f"the profiler saw no device row (try {attempt} of "
+            f"{PROFILE_TRIES})")
     best = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in device:
         for key in names:
             if key in e.name:
                 best[key] = min(best.get(key, math.inf),
                                 e.time_range.elapsed_us() / 1e3)
     missing = [key for key in names if key not in best]
     if missing:
-        seen = sorted({e.name[:60] for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA})
+        seen = sorted({e.name[:60] for e in device})
         raise AssertionError(f"the profiler saw no {missing} kernel; its "
                              f"device rows: {seen[:8]}")
     return best
@@ -1261,14 +1272,22 @@ def variants_phase(dev, results: dict) -> None:
                 runs[strategy] = got
         if workload == "ref_low":    # the line's entry: the fastest
             best = min(runs, key=lambda k: runs[k]["ms"])
-            results["merge_count_v"].update(runs[best])
+            r = results["merge_count_v"]
+            r.update(runs[best])
             bound(results, "merge_count_v", 4 * rows + 12 * rows, 2 * rows)
+            # the library call: both bounds by two searchsorted calls
+            r["library_ms"] = cuda_ms(
+                lambda: (torch.searchsorted(bk, pk, out_int32=True),
+                         torch.searchsorted(bk, pk, right=True,
+                                            out_int32=True)),
+                "two torch.searchsorted")
             k2 = cuda_ms(lambda: merge_count.merge_count(bk, pk),
                          "merge_count")
-            say("variants", f"ref_low {rows} x {rows}: fastest strategy "
-                f"{best} {runs[best]['ms']:.3f} ms; K2 merge_count on the "
-                f"same keys {k2:.3f} ms; bound "
-                f"{results['merge_count_v']['bound_ms']:.3f} ms")
+            say("variants", f"ref_low {rows} x {rows}: " + ", ".join(
+                f"{s} {runs[s]['ms']:.3f}" for s in MC_STRATEGIES)
+                + f" ms (fastest {best}); two torch.searchsorted "
+                f"{r['library_ms']:.3f} ms; K2 merge_count on the same keys "
+                f"{k2:.3f} ms; bound {r['bound_ms']:.3f} ms")
         del bk, pk
         torch.cuda.empty_cache()
 
@@ -1345,7 +1364,29 @@ def variants_phase(dev, results: dict) -> None:
 
 
 FOLD_RATIO = 1.5             # least time ratio when ops or steps double
+FOLD_ROWS = (16, 256, 512)   # the tile heights the folding guard times
 CHAIN_ENTRY = ("roll_sub", 256)
+SHFL_PER_CLOCK = 32          # warp-shuffle results an SM gives a clock
+
+
+def max_sm_hz() -> float:
+    """The card's highest SM clock as nvidia-smi reports it, in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def chain_sms(rows: int) -> int:
+    """The SMs op_chain runs on: one block, or two at R = 512."""
+    return 2 if rows == 512 else 1
+
+
+def shuffle_floor_ns(rows: int, hz: float) -> float:
+    """A roll op's floor in op_chain's design, in ns: one warp shuffle an
+    element on each of its SMs, SHFL_PER_CLOCK results a clock."""
+    return rows * op_chain.LANES / chain_sms(rows) / SHFL_PER_CLOCK / hz * 1e9
 
 
 def chain_entry(dev, results: dict) -> None:
@@ -1370,10 +1411,13 @@ def chain_entry(dev, results: dict) -> None:
         f"op_chain plain x{steps}")
     r["library_ms"] = cuda_ms(library, "torch.roll by the composed shift")
     bound(results, "op_chain", 8 * rows * op_chain.LANES,
-          ops * steps * rows * op_chain.LANES, sms=1)
+          ops * steps * rows * op_chain.LANES, sms=chain_sms(rows))
+    hz = max_sm_hz()
+    floor_ms = shuffle_floor_ns(rows, hz) * ops * steps / 1e6
     say("costs", f"op_chain {kind} R={rows}: plain over {steps} repetitions "
         f"{r['plain_ms']:.3f} ms; torch.roll by the composed shift "
-        f"{r['library_ms']:.3f} ms; bound at one SM {r['bound_ms']:.3f} ms")
+        f"{r['library_ms']:.3f} ms; bound at one SM {r['bound_ms']:.3f} ms; "
+        f"the design's shuffle floor at {hz / 1e9:.3f} GHz {floor_ms:.3f} ms")
 
 
 def costs_phase(dev, results: dict) -> None:
@@ -1382,8 +1426,13 @@ def costs_phase(dev, results: dict) -> None:
     then the three programs at full size, each kernel launched in its
     program's run."""
     sh, ops, steps = roll_cost.SH, op_chain.OPS, op_chain.STEPS
+    hz = max_sm_hz()
     for rows in roll_cost.PROGRAM_ROWS:
         x = full_range(rows * op_chain.LANES, 8 + rows, dev).view(rows, -1)
+        sms = chain_sms(rows)
+        bound_ns = rows * op_chain.LANES / (
+            OPS_PER_S * sms / torch.cuda.get_device_properties(0)
+            .multi_processor_count) * 1e9
         for kind in op_chain.KINDS:
             got = check_kernel(
                 f"op_chain[{kind}, R={rows}]",
@@ -1393,14 +1442,18 @@ def costs_phase(dev, results: dict) -> None:
             if (kind, rows) == CHAIN_ENTRY:
                 results["op_chain"].update(got)
             line = (f"op_chain {kind} R={rows}: "
-                    f"{got['ms'] * 1e6 / (ops * steps):.1f} ns/op")
-            if kind in op_chain.ROW_KINDS and rows <= 64:
-                if max_abs_err((op_chain.op_chain(x, sh, kind, 5),),
-                               (op_chain.op_chain_plain(x, sh, kind, 5),)):
-                    raise AssertionError(f"op_chain {kind} R={rows}: "
-                                         f"differs at 5 ops")
-                line += "; exact at 5 ops"
-            if rows in (16, 512):
+                    f"{got['ms'] * 1e6 / (ops * steps):.1f} ns/op (op bound "
+                    f"on {sms} SM {bound_ns:.1f}")
+            if kind not in ("select", "iota_add"):
+                line += f", shuffle floor {shuffle_floor_ns(rows, hz):.1f}"
+            line += ")"
+            # at 64 ops the row kinds are the identity for R <= 64
+            if max_abs_err((op_chain.op_chain(x, sh, kind, 5),),
+                           (op_chain.op_chain_plain(x, sh, kind, 5),)):
+                raise AssertionError(f"op_chain {kind} R={rows}: differs "
+                                     f"at 5 ops")
+            line += "; exact at 5 ops"
+            if rows in FOLD_ROWS:
                 # 128 ops against 64, not 64 against 32: a repetition's
                 # fixed cost weighs less beside the longer chain
                 t_ops = cuda_ms(lambda k=kind: op_chain.op_chain(

@@ -51,6 +51,34 @@ def test_matches_merge_count_v(jax_cv, strategy):
     assert cnt.numpy().sum() > 0 and (cnt.numpy() > 1).any()
 
 
+def _dup_run_keys():
+    """4,000 build keys holding a 2,500-key run of 5000 from index 1,100,
+    so the run spans chunks 1-3 and every slab seam in them, and 3,100
+    probe keys holding 1,200 copies of 5000 from index 600, so they span
+    probe tiles 0 and 1."""
+    rng = np.random.default_rng(11)
+    b = np.concatenate([np.sort(rng.integers(100, 5000, 1100)),
+                        np.full(2500, 5000),
+                        np.sort(rng.integers(5001, 9000, 400))])
+    p = np.concatenate([np.sort(rng.integers(50, 5000, 600)),
+                        np.full(1200, 5000),
+                        np.sort(rng.integers(5001, 9500, 1300))])
+    return b.astype(np.int32), p.astype(np.int32)
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_matches_merge_count_v_on_a_run_across_chunks(jax_cv, strategy):
+    b, p = _dup_run_keys()
+    jlo, jcnt = jax_cv.merge_count_v(jnp.asarray(b), jnp.asarray(p),
+                                     strategy=strategy)
+    lo, cnt = sc.merge_count_v(torch.from_numpy(b), torch.from_numpy(p),
+                               strategy)
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
+    run = p == 5000
+    assert (cnt.numpy()[run] == 2500).all() and (lo.numpy()[run] == 1100).all()
+
+
 def test_lo_is_n_above_every_build_key(jax_cv):
     """A whole 1024-key probe tile above every build key, n a multiple of
     1024: the JAX kernel clamps its window start to n_pad - 1024 and

@@ -662,6 +662,49 @@ def test_slab_count_lo_above_every_build_key():
         assert (lo == 1024).all() and not cnt.any()
 
 
+def _slab_edge_keys(case: str):
+    """Sorted (build, probe) keys on the edges the slab search walks."""
+    rng = np.random.default_rng(len(case))
+    if case == "dup_run":
+        # 2,500 copies of one key from build index 1,100 (chunks 1-3 and
+        # every slab seam inside them), 1,200 probe copies over tiles 0-1
+        b = np.concatenate([rng.integers(100, 5000, 1100), np.full(2500, 5000),
+                            rng.integers(5001, 9000, 3000)])
+        p = np.concatenate([rng.integers(50, 5000, 600), np.full(1200, 5000),
+                            rng.integers(5001, 9500, 5000)])
+    elif case == "chunk_start":
+        # probe tile 1 starts at key 4096 = b[2048]: its window starts on
+        # a chunk boundary
+        b = np.arange(0, 16384, 2)
+        p = np.concatenate([rng.integers(0, 4096, 1024), [4096],
+                            rng.integers(4096, 16384, 3000)])
+    elif case == "all_equal":
+        b, p = np.full(3000, 42), rng.integers(40, 45, 2500)
+    elif case == "small_m":
+        b, p = rng.integers(0, 20000, 5000), rng.integers(-10, 20010, 700)
+    else:
+        ext = np.array([IMIN, IMIN + 1, -1, 0, IMAX - 2, IMAX - 1])
+        b, p = rng.choice(ext, 5000), rng.choice(ext, 3000)
+    return [torch.from_numpy(np.sort(x).astype(np.int32)).cuda()
+            for x in (b, p)]
+
+
+@pytest.mark.parametrize("strategy", MC_STRATEGIES)
+@pytest.mark.parametrize("case", ["dup_run", "chunk_start", "all_equal",
+                                  "small_m", "extremes"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_slab_count_search_edges(strategy, case, offset):
+    """The slab search against the plain version on duplicate runs longer
+    than a chunk, a window on a chunk boundary, one build key, fewer probe
+    keys than a tile and the i32 extremes; offset 1 puts both columns one
+    word past a 16-byte boundary, so the chunks are staged key by key."""
+    b, p = (torch.cat([x[:offset], x])[offset:] for x in _slab_edge_keys(case))
+    before = slab_count.LAUNCHES
+    _equal(slab_count.merge_count_v(b, p, strategy),
+           slab_count.merge_count_v_plain(b, p))
+    assert slab_count.LAUNCHES == before + 1
+
+
 def _uneven_runs(seed: int):
     """~800 runs of 1-40 slots with random build starts and a full-range
     source, slab bases that make raw source offsets negative."""
@@ -784,6 +827,24 @@ def test_op_chain_kernel(kind, rows, ops, steps):
         _equal((op_chain.op_chain(x, sh, kind, ops, steps),),
                (op_chain.op_chain_plain(x, sh, kind, ops, steps),))
     assert op_chain.LAUNCHES == before + 3
+
+
+# shifts on the seams of the kernel's layouts: lane offsets 0, 1 and 31,
+# register offsets of one and more, whole turns of 32, 128, 256 and 512,
+# negative and the i32 extremes
+SEAMS = [0, 1, 31, 32, 33, 127, 128, 255, 256, 511, -1, int(IMIN), int(IMAX)]
+
+
+@pytest.mark.parametrize("kind", ["roll_sub", "roll_lane"])
+@pytest.mark.parametrize("rows", op_chain.ROWS)
+@pytest.mark.parametrize("ops", [0, 1, 5, 64])
+def test_op_chain_seam_shifts(kind, rows, ops):
+    x = _full_range(rows * op_chain.LANES, rows + ops + 7).view(rows, -1)
+    before = op_chain.LAUNCHES
+    for sh in SEAMS:
+        _equal((op_chain.op_chain(x, sh, kind, ops, 2),),
+               (op_chain.op_chain_plain(x, sh, kind, ops, 2),))
+    assert op_chain.LAUNCHES == before + len(SEAMS)
 
 
 @pytest.mark.parametrize("rows", [1, 8, 128])

@@ -75,6 +75,23 @@ def test_matches_run_at_r16_ops5(jax_rc5, kind):
         np.testing.assert_array_equal(want, np.roll(x, 25, 0))
 
 
+# the kernel's layout seams: lane offsets 0, 1 and 31, register offsets of
+# one and more, whole turns of 32, 128, 256 and 512, negative, i32 extremes
+SEAMS = (0, 1, 31, 32, 33, 127, 128, 255, 256, 511, -1, IMIN, IMAX)
+
+
+@pytest.mark.parametrize("kind", ["roll_sub", "roll_lane"])
+@pytest.mark.parametrize("sh", SEAMS)
+def test_matches_run_at_seam_shifts(jax_rc5, kind, sh):
+    x = _tile(16, 77)
+    want = np.asarray(jax_rc5.run(jnp.asarray(x),
+                                  jnp.array([sh], jnp.int32), kind, 16))
+    got = oc.op_chain(torch.from_numpy(x), int(sh), kind, 5)
+    np.testing.assert_array_equal(got.numpy(), want)
+    axis = 0 if kind == "roll_sub" else 1
+    np.testing.assert_array_equal(want, np.roll(x, 5 * int(sh), axis))
+
+
 @pytest.mark.parametrize("kind", oc.ROW_KINDS)
 def test_row_kinds_are_the_identity_at_64_ops(kind):
     """The parity trap above, on the plain version: at R = 16 and 64 the

@@ -30,6 +30,28 @@ __device__ __forceinline__ int64_t upper_bound(const int32_t* a, int64_t lo,
   return lo;
 }
 
+// First index i >= lo of a[lo, n) with a[i] > x (UPPER) or a[i] >= x (a
+// ascending), galloping from lo: one load when a[lo] is already past x.
+template <bool UPPER, typename I>
+__device__ __forceinline__ I gallop(const int32_t* a, I lo, I n, int32_t x) {
+  const auto before = [x](int32_t v) { return UPPER ? v <= x : v < x; };
+  if (lo >= n || !before(a[lo])) return lo;
+  I good = lo, step = 1;                  // before(a[good])
+  for (;;) {
+    const I next = good + step;
+    if (next >= n || !before(a[next])) {
+      I l = good + 1, h = next < n ? next : n;
+      while (l < h) {
+        const I mid = (l + h) >> 1;
+        if (before(a[mid])) l = mid + 1; else h = mid;
+      }
+      return l;
+    }
+    good = next;
+    step <<= 1;
+  }
+}
+
 // Copies the TILE words of x from `base` into the shared `tile`, coalesced:
 // each of THREADS threads loads TILE / THREADS words, neighbouring threads
 // neighbouring words, with streaming loads (each word is read once).

@@ -66,28 +66,6 @@ __device__ __forceinline__ I corank(const int32_t* b, I n, const int32_t* p,
   return lo;
 }
 
-// First index i >= lo of a[lo, n) with a[i] > x (a ascending), galloping
-// from lo: one load when a[lo] > x already.
-template <typename I>
-__device__ __forceinline__ I gallop_upper(const int32_t* a, I lo, I n,
-                                          int32_t x) {
-  if (lo >= n || a[lo] > x) return lo;
-  I good = lo, step = 1;                  // a[good] <= x
-  for (;;) {
-    const I next = good + step;
-    if (next >= n || a[next] > x) {
-      I l = good + 1, h = next < n ? next : n;
-      while (l < h) {
-        const I mid = (l + h) >> 1;
-        if (a[mid] <= x) l = mid + 1; else h = mid;
-      }
-      return l;
-    }
-    good = next;
-    step <<= 1;
-  }
-}
-
 // Words a pointer lies past a 16-byte boundary.
 __device__ __forceinline__ int quad_shift(const int32_t* ptr) {
   return (int)((reinterpret_cast<uintptr_t>(ptr) >> 2) & 3);
@@ -132,7 +110,7 @@ corank_kernel(const int32_t* __restrict__ b, int64_t n,
   const int64_t i = corank(b, n, p, m, d);
   const int64_t j = d - i;
   part_i[k] = (int32_t)i;
-  part_u[k] = (int32_t)(j > 0 ? gallop_upper(b, i, n, p[j - 1]) : i);
+  part_u[k] = (int32_t)(j > 0 ? tj::gallop<true>(b, i, n, p[j - 1]) : i);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -178,7 +156,7 @@ merge_count_kernel(const int32_t* __restrict__ b, int64_t n,
   for (int jj = threadIdx.x; jj < nj; jj += THREADS) {
     const int32_t x = ps[jj];
     const int l = lo_s[jj];
-    const int u = gallop_upper(bs, l, ni, x);
+    const int u = tj::gallop<true>(bs, l, ni, x);
     lo[j0 + jj] = (int32_t)(i0 + l);
     cnt[j0 + jj] = (u == ni && x == last) ? (int32_t)(last_upper - (i0 + l))
                                           : u - l;

@@ -45,7 +45,7 @@ _SIGNATURES = {
     "tj_smem_gather": (P, I64, P, P, I64, P),
     "tj_carry_scan": (P, P, I64, P, I64, P),
     "tj_shift_loop": (P, P, I64, I64, P),
-    "tj_slab_count": (P, I64, P, I64, I64, I64, I64, P, P, P),
+    "tj_slab_count": (P, I64, P, I64, I64, I64, I64, P, I64, P, P, P),
     "tj_run_variant": (P, P, P, P, P, P, I64, I64, I64, I64, P, P, P),
     "tj_fill_forward": (P, P, I64, I64, P, I64, P),
     "tj_expand_fill_v": (P, P, I64, P, P, P, I64, P, I64, I64, P, P, I64, I64,

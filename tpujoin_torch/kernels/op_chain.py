@@ -17,10 +17,11 @@ The result is the op applied ``ops`` times, adds wrapping. The JAX ``OPS``
 kernel runs ``steps`` repetitions of the chain, each from the same staged
 tile, as each TPU grid step starts from the same VMEM block; every
 repetition computes the same tile, so :func:`op_chain_plain` runs the
-chain once. R is one of ROWS: the kernel holds R / 8 values a thread in
-one block of 1024 threads, and R = 512 in a cluster of two. A CUDA tensor
-goes through the kernel, a CPU tensor through the plain version; anything
-else raises.
+chain once. R is one of ROWS: the kernel holds the tile in registers,
+one block of 1024 threads (512 for roll_lane at R = 16), and R = 512 as
+two independent blocks; a roll is one warp shuffle an element an op. A
+CUDA tensor goes through the kernel, a CPU tensor through the plain
+version; anything else raises.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
-"""Slab count: K2's dense-compare design probe (csrc/count_variants.cu).
+"""Slab count: K2's slab design probe (csrc/count_variants.cu).
 
 The port of exp/count_variants.py:119 ``merge_count_v``: for every sorted
 probe key, ``min(lo, n)`` and ``cnt``, lo the number of build keys below
 the key and cnt the number equal to it, both int32. Every strategy returns
-the same answer; they differ in how the kernel skips work:
+the same answer; they differ in which slabs of build keys the kernel
+resolves (by a search in shared memory) and which it adds or skips whole:
 
   fat512   the whole tile as one probe piece, 512-key slabs, no slab skip
   fatcN    the whole tile as one probe piece, N-key slabs, slab skip
@@ -15,7 +16,8 @@ window start to ``n_pad - 1024`` (``:136``) and so returns ``n - 1024``
 for a whole tile above every build key when n is a multiple of 1024, this
 returns the lower bound n. A CUDA tensor goes through the kernel, a CPU
 tensor through :func:`merge_count_v_plain`; anything else raises, as does
-an unknown strategy.
+an unknown strategy. A call is two launches, a window pass and the count,
+and counts one in ``LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -73,8 +75,11 @@ def merge_count_v(sorted_build_keys: torch.Tensor,
     if b.shape[0] >= 2**31:
         raise ValueError("merge_count_v: more than 2^31 - 1 build keys")
     if p.shape[0]:
+        tiles = -(-p.shape[0] // TILE)
+        window = torch.empty(2 * tiles, dtype=torch.int32, device=p.device)
         _build.call("tj_slab_count", p.device, b.data_ptr(), b.shape[0],
                     p.data_ptr(), p.shape[0], int(piece < TILE), slab,
-                    int(skip), lo.data_ptr(), cnt.data_ptr())
+                    int(skip), window.data_ptr(), tiles, lo.data_ptr(),
+                    cnt.data_ptr())
         LAUNCHES += 1
     return lo, cnt
