@@ -3,7 +3,9 @@
 
 Phases, one line each (details on stderr):
   1. device   the card, and its name and power limit from nvidia-smi;
-  2. build    nvcc builds every kernel of tpujoin_torch/csrc;
+  2. build    nvcc builds every kernel of tpujoin_torch/csrc; then the
+              launch floor, a one-element Tensor.fill_ timed as the
+              kernels are;
   3. kernels  each kernel against its plain PyTorch version on the card, on
               the inputs the main paths give it, bitwise, and the time of
               both (CUDA events, the minimum of 5 runs after a warm-up,
@@ -120,7 +122,10 @@ Phases, one line each (details on stderr):
               >= 1.5x the time), and at R = 256 roll_sub, the kernels
               line's entry, the plain version over all 512 repetitions and
               torch.roll by the composed shift; select_chain on 2^28 rows,
-              every R and op count of the program; flat_roll on 2^28 rows
+              every R and op count of the program, and its folding guard
+              at every R (2048 ops against 1024 on shifts inside the
+              block must take >= 1.5x the time; both exact on 2^20 rows);
+              flat_roll on 2^28 rows
               at rolls 1, 4, 10 and 20, and at shifts around the tile,
               negative and i32-large; then the three programs at full
               size, each kernel's launch counter above 0 for its program's
@@ -141,7 +146,9 @@ Phases, one line each (details on stderr):
               each kernel's launch counter above 0 for its program's run.
 Then one JSON line of per-kernel results (times, launches, the bound from
 this run's shapes, the library call's time where one computes the same
-function), the wall time, and last the line
+function; for smem_gather and the ten capability kernels also
+launch_bound_ms, the larger of that bound and the launch floor, which the
+line holds as floor_ms), the wall time, and last the line
 {"ok": true, "device": {...}}. Any failure exits non-zero before it; there
 is no CPU path.
 
@@ -1366,6 +1373,7 @@ def variants_phase(dev, results: dict) -> None:
 FOLD_RATIO = 1.5             # least time ratio when ops or steps double
 FOLD_ROWS = (16, 256, 512)   # the tile heights the folding guard times
 CHAIN_ENTRY = ("roll_sub", 256)
+CHAIN_GUARD_OPS = 1024       # select_chain's guard: this many ops and twice
 SHFL_PER_CLOCK = 32          # warp-shuffle results an SM gives a clock
 
 
@@ -1418,6 +1426,46 @@ def chain_entry(dev, results: dict) -> None:
         f"{r['plain_ms']:.3f} ms; torch.roll by the composed shift "
         f"{r['library_ms']:.3f} ms; bound at one SM {r['bound_ms']:.3f} ms; "
         f"the design's shuffle floor at {hz / 1e9:.3f} GHz {floor_ms:.3f} ms")
+
+
+def chain_adds(shifts: torch.Tensor, rows: int, n: int) -> int:
+    """The adds select_chain's inputs need: for each op, the elements of
+    each block at or past its shift."""
+    block = rows * select_chain.LANES
+    per_block = sum(block - min(max(c, 0), block) for c in shifts.tolist())
+    return per_block * (n // block)
+
+
+def chain_guard(x: torch.Tensor, dev) -> None:
+    """select_chain's folding guard on the 2^28-row column: at every R of
+    the program, twice CHAIN_GUARD_OPS ops on shifts inside the block must
+    take >= FOLD_RATIO the time of CHAIN_GUARD_OPS, where the chain is
+    compute-bound; both op counts exact against the plain version on
+    2^20 rows."""
+    small = x[:1 << 20]
+    for rows in probe_opcost.BLOCK_ROWS:
+        block = rows * select_chain.LANES
+        shifts = (torch.arange(1, 2 * CHAIN_GUARD_OPS + 1, dtype=torch.int32,
+                               device=dev) * probe_opcost.SHIFT) % block
+        times = []
+        for ops in (CHAIN_GUARD_OPS, 2 * CHAIN_GUARD_OPS):
+            if max_abs_err(
+                    (select_chain.select_chain(small, shifts, ops, rows),),
+                    (select_chain.select_chain_plain(small, shifts, ops,
+                                                     rows),)):
+                raise AssertionError(f"select_chain R={rows}: differs at "
+                                     f"{ops} ops")
+            times.append(cuda_ms(lambda o=ops: select_chain.select_chain(
+                x, shifts, o, rows), f"select_chain R={rows} {ops} ops"))
+        ratio = times[1] / times[0]
+        say("costs", f"select_chain R={rows}, shifts 37(d + 1) mod {block}: "
+            f"{CHAIN_GUARD_OPS} ops {times[0]:.3f} ms, "
+            f"{2 * CHAIN_GUARD_OPS} ops {times[1]:.3f} ms, x{ratio:.3f}; "
+            f"exact at both on {small.shape[0]} rows")
+        if ratio < FOLD_RATIO:
+            raise AssertionError(
+                f"select_chain R={rows}: folded or skipped, x{ratio:.3f} for "
+                f"twice the ops (< {FOLD_RATIO})")
 
 
 def costs_phase(dev, results: dict) -> None:
@@ -1486,7 +1534,9 @@ def costs_phase(dev, results: dict) -> None:
                 "costs")
             if (rows, ops) == (128, 33):
                 results["select_chain"].update(got)
-    bound(results, "select_chain", 8 * n, 3 * 33 * n)
+                bound(results, "select_chain", 8 * n,
+                      chain_adds(shifts, rows, n))
+    chain_guard(x, dev)
 
     n = probe_flatroll.N
     for rolls in probe_flatroll.ROLLS:
@@ -1539,6 +1589,11 @@ MOSAIC = {"roll": (mosaic, probe_mosaic, mosaic.ROW),
           "sublane_roll": (mosaic3, probe_mosaic3, 32 * mosaic3.LANES),
           "row_dma_2d": (mosaic3, probe_mosaic3, 32 * mosaic3.LANES),
           "flat_rotate": (mosaic3, probe_mosaic3, 8 * mosaic3.LANES)}
+
+
+# the one-block kernels whose bytes and operations take far less than a
+# launch: beside their bound, the launch floor (a one-element fill_)
+LAUNCH_BOUND = ("smem_gather", *MOSAIC)
 
 
 # the one-block kernels timed three times each in turns with their library
@@ -1896,6 +1951,9 @@ def main(argv=None) -> int:
     _build.build()
     _build.lib()
     say("build", f"{time.perf_counter() - t0:.3f} s")
+    one = torch.empty(1, dtype=torch.int32, device=dev)
+    floor_ms = cuda_ms(lambda: one.fill_(1), "one-element fill_")
+    say("device", f"launch floor: a one-element fill_ {floor_ms:.6f} ms")
 
     src = "tpujoin_torch/csrc/"
     results = {
@@ -1977,13 +2035,20 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         say("time", f"{time.perf_counter() - t0:.3f} s")
 
+    for name in LAUNCH_BOUND:
+        r = results[name]
+        r["launch_bound_ms"] = max(r["bound_ms"], floor_ms)
+        say("bounds", f"{name}: {r['ms']:.6f} ms against the launch floor "
+            f"{floor_ms:.6f} ({r['bound_by']} {r['bound_ms']:.3e})")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": r["source"],
          "replaces": r["replaces"], "launches": r["launches"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
-        for name, r in results.items()]}), flush=True)
+         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+         **({"launch_bound_ms": r["launch_bound_ms"]}
+            if "launch_bound_ms" in r else {})}
+        for name, r in results.items()], "floor_ms": floor_ms}), flush=True)
     say("wall", f"{time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

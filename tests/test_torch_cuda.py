@@ -741,6 +741,75 @@ def test_run_variant_kernel(variant, case):
     assert runs_phases.LAUNCHES == before + 1
 
 
+RUN_SEAMS = ("empty_runs", "long_runs", "clipped", "before_first")
+
+
+def _seam_runs(case: str, total_at: str):
+    """~2,500 runs of 1-59 slots over several steps, each step's window at
+    the 1024-aligned run at or before its first slot (the program's
+    layout), random build starts, a full-range source and random source
+    bases (so raw goes negative and u + delta passes the slab's end), and
+    the seam of ``case``: 40% of the runs empty; runs of 1024, 1500, 9000
+    and 20000 slots (a tile, more, more than a step); only 1800 runs
+    counted while the window's later offsets still ascend (rel_max clips
+    r1); each window starting one run after its step's first slot (slots
+    before the window's first offset have no run). The total is 0, a
+    mid-tile slot or the capacity."""
+    rng = np.random.default_rng(RUN_SEAMS.index(case))
+    counts = rng.integers(1, 60, 2500)
+    if case == "empty_runs":
+        counts[rng.random(counts.size) < 0.4] = 0
+    if case == "long_runs":
+        counts[[5, 300, 301, 900]] = [1500, 9000, 1024, 20000]
+    offs = np.cumsum(counts) - counts
+    k = counts.size
+    nonzero = 1800 if case == "clipped" else k
+    capacity = int(offs[-1] + counts[-1]) + 3000
+    steps = -(-capacity // runs_phases.STEP)
+    t0s = np.arange(steps) * runs_phases.STEP
+    first = np.clip(np.searchsorted(offs, t0s, "right") - 1, 0, nonzero - 1)
+    meta_base = (np.minimum(first + 1, nonzero - 1) if case == "before_first"
+                 else first // 1024 * 1024)
+    npad = -(-k // 1024) * 1024 + runs_phases.META
+    cols = [np.full(npad, IMAX), np.zeros(npad, np.int64),
+            np.zeros(npad, np.int64)]
+    cols[0][:k], cols[1][:k], cols[2][:k] = (offs, rng.integers(0, 8000, k),
+                                             rng.permutation(k))
+    nsrc = 16384
+    src_base = rng.integers(0, nsrc - runs_phases.SRC, steps)
+    cols += [rng.integers(IMIN, IMAX, nsrc, endpoint=True), meta_base,
+             src_base]
+    total = {"zero": 0, "mid_tile": capacity // 2 // 1024 * 1024 + 517,
+             "capacity": capacity}[total_at]
+    # the seams the data must reach, from the unclipped runs
+    t = np.arange(capacity)
+    run = np.searchsorted(offs, t, "right") - 1
+    tile0 = t // runs_phases.TILE * runs_phases.TILE
+    raw = tile0 - offs[run] + cols[1][run] - src_base[t // runs_phases.STEP]
+    assert (raw < 0).any() and (t - tile0 + raw % runs_phases.SRC
+                                >= runs_phases.SRC).any()
+    assert {"empty_runs": lambda: (counts == 0).sum() > 500,
+            "long_runs": lambda: counts.max() > runs_phases.STEP,
+            "clipped": lambda: offs[nonzero] < capacity,
+            "before_first": lambda: (offs[meta_base] > t0s).any()}[case]()
+    cols = [torch.from_numpy(c.astype(np.int32)).cuda() for c in cols]
+    return cols, nonzero, total, capacity
+
+
+@pytest.mark.parametrize("variant", runs_phases.VARIANTS)
+@pytest.mark.parametrize("case", RUN_SEAMS)
+@pytest.mark.parametrize("total_at", ["zero", "mid_tile", "capacity"])
+def test_run_variant_seams(variant, case, total_at):
+    cols, nonzero, total, capacity = _seam_runs(case, total_at)
+    runs_phases.check_bases(cols[0], cols[3], cols[4], cols[5], nonzero,
+                            capacity)
+    before = runs_phases.LAUNCHES
+    _equal(runs_phases.run_variant(*cols, nonzero, total, capacity, variant),
+           runs_phases.run_variant_plain(*cols, nonzero, total, capacity,
+                                         variant))
+    assert runs_phases.LAUNCHES == before + 1
+
+
 def _marks(n: int, every: int, seed: int) -> torch.Tensor:
     """n slots of -1 and other negatives, with markers (values up to
     INT32_MAX) about ``every`` slots apart (none when every is 0)."""
@@ -855,6 +924,41 @@ def test_select_chain_kernel(rows, ops, blocks):
     shifts = _full_range(max(ops, 1), ops)
     shifts[1::2] = torch.arange(1, shifts[1::2].numel() + 1,
                                 dtype=torch.int32, device="cuda") * 37
+    before = select_chain.LAUNCHES
+    _equal((select_chain.select_chain(x, shifts, ops, rows),),
+           (select_chain.select_chain_plain(x, shifts, ops, rows),))
+    assert select_chain.LAUNCHES == before + 1
+
+
+def _warp_span(rows: int) -> int:
+    """Elements of one warp's range in select_chain's kernel: 128 K, K 4,
+    2 or 1 as R is a multiple of 4, of 2 or neither."""
+    return 128 * (4 if rows % 4 == 0 else 2 if rows % 2 == 0 else 1)
+
+
+def _chain_shifts(kind: str, rows: int, ops: int) -> torch.Tensor:
+    """``ops`` shifts (at least one): every warp's range edges u_w,
+    u_w + 1, u_w + 128K - 1 and u_w + 128K in turn; 0, negatives and the
+    i32 ends; or the block's indices in a random order."""
+    span, block = _warp_span(rows), rows * select_chain.LANES
+    rng = np.random.default_rng(rows * 7 + ops)
+    if kind == "edges":
+        base = [u + e for u in range(0, block, span)
+                for e in (0, 1, span - 1, span)]
+    elif kind == "signs":
+        base = [0, -1, -37, IMIN, IMAX, 0, -span, IMIN + 1, IMAX - 1]
+    else:
+        base = rng.permutation(block + 1).tolist()
+    shifts = np.resize(np.array(base, np.int64), max(ops, 1))
+    return torch.from_numpy(shifts.astype(np.int32)).cuda()
+
+
+@pytest.mark.parametrize("rows", [1, 2, 8, 128])
+@pytest.mark.parametrize("ops", [0, 1, 33, 1024])
+@pytest.mark.parametrize("kind", ["edges", "signs", "unsorted"])
+def test_select_chain_seams(rows, ops, kind):
+    x = _full_range(7 * rows * select_chain.LANES, rows + ops)
+    shifts = _chain_shifts(kind, rows, ops)
     before = select_chain.LAUNCHES
     _equal((select_chain.select_chain(x, shifts, ops, rows),),
            (select_chain.select_chain_plain(x, shifts, ops, rows),))

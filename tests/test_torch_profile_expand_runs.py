@@ -90,6 +90,45 @@ def test_uneven_runs_match_run_variant(jax_per, variant):
     assert (raw < 0).sum() > 1000      # truncating rem matters here
 
 
+def _empty_runs_clipped():
+    """600 runs of 0-30 slots, about a third of them empty, the first 700
+    slots in (the slots before it have no run); only 450 runs count
+    (nonzero), though the window's offsets after them still ascend, so
+    rel_max = nonzero - 1 - mb clips r1 in the later tiles."""
+    rng = np.random.default_rng(12)
+    counts = rng.integers(0, 31, 600)
+    counts[rng.random(600) < 0.3] = 0
+    offs = 700 + np.cumsum(counts) - counts
+    k, nonzero = len(counts), 450
+    total = int(offs[-1] + counts[-1])
+    capacity = total + 1000
+    steps = -(-capacity // rp.STEP)
+    offp = np.full(rp.META, IMAX, np.int32)
+    offp[:k] = offs
+    lop = np.zeros(rp.META, np.int32)
+    lop[:k] = rng.integers(0, 6000, k)
+    sidp = np.zeros(rp.META, np.int32)
+    sidp[:k] = rng.permutation(k)
+    src = rng.integers(IMIN, IMAX, 12288, endpoint=True).astype(np.int32)
+    meta_base = np.zeros(steps, np.int32)
+    src_base = (np.arange(steps) % 3 * 2048 + 1024).astype(np.int32)
+    cols = [torch.from_numpy(c) for c in (offp, lop, sidp, src, meta_base,
+                                          src_base)]
+    return cols, offs, nonzero, total, capacity
+
+
+@pytest.mark.parametrize("variant", rp.VARIANTS)
+def test_empty_runs_and_clipped_rel_max_match_run_variant(jax_per, variant):
+    cols, offs, nonzero, total, capacity = _empty_runs_clipped()
+    assert (np.diff(offs) == 0).sum() > 100
+    assert offs[nonzero] < total            # runs past nonzero hold slots
+    r, s = _both(jax_per, cols, nonzero, total, capacity, variant)
+    if variant == "full":
+        assert (r[:offs[0]] == 0).all() and (s[:offs[0]] == 0).all()
+        # from the last counted run on, every slot takes that run
+        assert (s[offs[nonzero - 1]:total] == int(cols[2][nonzero - 1])).all()
+
+
 def test_wrapper_refuses_bad_input():
     *cols, k, capacity = per.inputs(300, torch.device("cpu"))
     with pytest.raises(ValueError, match="variant"):

@@ -18,8 +18,9 @@ slot u of the tile at t0:
 
 and both columns are -1 at t0 + u >= total. The variants drop phases
 (``VARIANTS``); each output is the JAX kernel's, bitwise. The offsets in
-each slab must ascend (the kernel finds d by one search, where the JAX
-kernel loops over every d). ``lim`` of the JAX function is the pair
+each slab must ascend (the kernel counts r0 and r1 by ballots and finds d
+by a walk over the offsets, where the JAX kernel counts and loops over
+every d). ``lim`` of the JAX function is the pair
 (``nonzero``, ``total``). A CUDA tensor goes through the kernel, a CPU
 tensor through :func:`run_variant_plain`; anything else raises, as does an
 unknown variant.

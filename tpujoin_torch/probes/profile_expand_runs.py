@@ -5,10 +5,10 @@ The port of exp/profile_expand_runs.py (its ``main()``, :133): 1M runs of
 consecutive runs, the source an ``arange``. Each variant of the run_variant
 kernel (kernels/runs_phases.py) is timed:
 
-  full      the kernel's phases: rank search, run search, metadata reads,
-            the shared-memory gather
+  full      the kernel's phases: rank search, run walk, metadata reads,
+            the gather from the source slab
   noroll    the gather replaced by ``src[sb + u] + delta``
-  noscalar  no metadata reads
+  noscalar  no run walk and no metadata reads
   norank    no rank search
   empty     the rank search and the stores only
 
