@@ -1,0 +1,9 @@
+"""build_ms: the mean over the window's joins of the build call's span
+(hash_join.build: the ids' arange and K1's sort), from CUDA events
+recorded on the stream before and after it."""
+import statistics
+
+
+def read(r):
+    spans = r.spans_ms.get("build")
+    return statistics.fmean(spans) if spans else None
