@@ -170,7 +170,7 @@ import numpy as np
 import torch
 
 import tpujoin_torch
-from tpujoin_torch import bench, merge_join, merge_join_rle, oracle
+from tpujoin_torch import bench, merge_join, merge_join_rle, oracle, trace
 from tpujoin_torch.core import datagen
 from tpujoin_torch.core import io as table_io
 from tpujoin_torch.dryrun import dryrun_multichip
@@ -653,9 +653,9 @@ def dense_kernels_phase(dev, cfg, results: dict) -> None:
     del lo_c, cnt_c, sid_c, offs_c, goff, glo, gnb
 
     kw = {"total": total, "nonzero": nonzero}
-    expand_groups.LAUNCHES = 0
+    zero_counters()
     r, s, _, fits = mj.probe_materialize_groups(ht, state, k_cap, cap, **kw)
-    launches = expand_groups.LAUNCHES
+    launches = read_counters()["expand_groups"]
     if not bool(fits) or launches <= 0:
         raise AssertionError(f"probe_materialize_groups: fits {bool(fits)}, "
                              f"{launches} expand_groups launches")
@@ -734,46 +734,42 @@ def k6_phase(dev, results: dict) -> None:
         f"kept, k_cap {gcap}")
 
 
-COUNTERS = {"sort_histogram": (merge_sort, "HIST_LAUNCHES"),
-            "sort_pass": (merge_sort, "PASS_LAUNCHES"),
-            "merge_count": (merge_count, "LAUNCHES"),
-            "compact3": (compact, "LAUNCHES"),
-            "expand": (expand, "LAUNCHES"),
-            "expand_fill": (expand_fill, "LAUNCHES"),
-            "expand_groups": (expand_groups, "LAUNCHES"),
-            "expand_runs": (expand_runs, "LAUNCHES"),
-            "compact_ids": (compact, "IDS_LAUNCHES"),
-            "compact_cols": (compact, "COLS_LAUNCHES"),
-            "stream_scale": (stream, "LAUNCHES"),
-            "smem_gather": (smem_gather, "LAUNCHES"),
-            "carry_scan": (carry_scan, "LAUNCHES"),
-            "shift_loop": (shift_loop, "LAUNCHES"),
-            "merge_count_v": (slab_count, "LAUNCHES"),
-            "expand_fill_v": (fill_phases, "LAUNCHES"),
-            "run_variant": (runs_phases, "LAUNCHES"),
-            "fill_forward": (forward_fill, "LAUNCHES"),
-            "op_chain": (op_chain, "LAUNCHES"),
-            "select_chain": (select_chain, "LAUNCHES"),
-            "flat_roll": (flat_roll, "LAUNCHES"),
-            "roll": (mosaic, "ROLL_LAUNCHES"),
-            "smem_dyn": (mosaic, "SMEM_DYN_LAUNCHES"),
-            "vmem_dyn": (mosaic, "VMEM_DYN_LAUNCHES"),
-            "fori": (mosaic, "FORI_LAUNCHES"),
-            "smem_block": (mosaic, "SMEM_BLOCK_LAUNCHES"),
-            "hbm_to_smem": (mosaic2, "HBM_TO_SMEM_LAUNCHES"),
-            "dyn_vec_load": (mosaic2, "DYN_VEC_LOAD_LAUNCHES"),
-            "sublane_roll": (mosaic3, "SUBLANE_ROLL_LAUNCHES"),
-            "row_dma_2d": (mosaic3, "ROW_DMA_2D_LAUNCHES"),
-            "flat_rotate": (mosaic3, "FLAT_ROTATE_LAUNCHES")}
+# kernel -> the entry point whose launches trace.launches counts (compact3
+# and compact_cols share one, as do expand_fill and expand_groups: no
+# phase runs both of a pair)
+COUNTERS = {"sort_histogram": "tj_sort_histogram",
+            "sort_pass": "tj_sort_pass",
+            "merge_count": "tj_merge_count",
+            "compact3": "tj_compact_cols",
+            "expand": "tj_expand",
+            "expand_fill": "tj_expand_fill",
+            "expand_groups": "tj_expand_fill",
+            "expand_runs": "tj_expand_runs",
+            "compact_ids": "tj_compact_ids",
+            "compact_cols": "tj_compact_cols",
+            "stream_scale": "tj_stream_scale",
+            "smem_gather": "tj_smem_gather",
+            "carry_scan": "tj_carry_scan",
+            "shift_loop": "tj_shift_loop",
+            "merge_count_v": "tj_slab_count",
+            "expand_fill_v": "tj_expand_fill_v",
+            "run_variant": "tj_run_variant",
+            "fill_forward": "tj_fill_forward",
+            "op_chain": "tj_op_chain",
+            "select_chain": "tj_select_chain",
+            "flat_roll": "tj_flat_roll",
+            **{k: f"tj_mosaic_{k}" for k in (
+                "roll", "smem_dyn", "vmem_dyn", "fori", "smem_block",
+                "hbm_to_smem", "dyn_vec_load", "sublane_roll", "row_dma_2d",
+                "flat_rotate")}}
 
 
 def zero_counters() -> None:
-    for mod, attr in COUNTERS.values():
-        setattr(mod, attr, 0)
+    trace.launches.clear()
 
 
 def read_counters() -> dict:
-    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+    return {name: trace.launches[entry] for name, entry in COUNTERS.items()}
 
 
 def runs_phase(dev, results: dict) -> None:

@@ -14,6 +14,7 @@ from test_torch_probes import load_exp
 
 from tpujoin_torch.kernels import slab_count as sc
 from tpujoin_torch.probes import count_variants
+from tpujoin_torch.trace import launches
 
 STRATEGIES = ["fat512", "fatc512", "fatc256", "fatc128", "diag128",
               "quad256"]
@@ -40,10 +41,10 @@ def test_matches_merge_count_v(jax_cv, strategy):
     b, p = _keys()
     jlo, jcnt = jax_cv.merge_count_v(jnp.asarray(b), jnp.asarray(p),
                                      strategy=strategy)
-    before = sc.LAUNCHES
+    before = launches["tj_slab_count"]
     lo, cnt = sc.merge_count_v(torch.from_numpy(b), torch.from_numpy(p),
                                strategy)
-    assert sc.LAUNCHES == before
+    assert launches["tj_slab_count"] == before
     assert lo.dtype == cnt.dtype == torch.int32
     np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo))
     np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
@@ -119,7 +120,7 @@ def test_plain_on_empty_and_ragged_widths():
 
 
 def test_count_variants_runs_small_on_cpu(capsys):
-    before = sc.LAUNCHES
+    before = launches["tj_slab_count"]
     assert count_variants.main(["--device", "cpu", "--scale", "0.0002"]) == 0
     out = capsys.readouterr()
     lines = [json.loads(line) for line in out.out.splitlines()]
@@ -132,7 +133,7 @@ def test_count_variants_runs_small_on_cpu(capsys):
     assert [x["rows"] for x in lines] == [20000] * 4 + [2000] * 4
     high = {x["total"] for x in lines if x["workload"] == "ref_high"}
     assert len(high) == 1 and high.pop() > 0
-    assert sc.LAUNCHES == before
+    assert launches["tj_slab_count"] == before
     assert out.err.rstrip().endswith("DONE")
 
 

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import tpujoin_torch
-from tpujoin_torch import oracle
+from tpujoin_torch import oracle, trace
 from tpujoin_torch.core import datagen
 from tpujoin_torch.ops import aggregate as agg
 from tpujoin_torch.ops import filter as flt
@@ -26,6 +26,8 @@ from tpujoin_torch.kernels import (carry_scan, compact, expand, expand_fill,
                                    stream)
 from tpujoin_torch.probes import (fill_variants, probe_mosaic, probe_mosaic2,
                                   probe_mosaic3, profile_expand_runs)
+from tpujoin_torch.trace import launches
+from tpujoin_torch.utils.shapes import round_up
 
 pytestmark = pytest.mark.skipif(
     "not torch.cuda.is_available()",
@@ -248,19 +250,23 @@ def test_expand_pair_kernels(state, extra):
     fill_args = (runs["roff"], runs["sid"], groups["goff"], groups["glo"],
                  groups["gnb"], src, k, ng, total, cap)
     runs_args = (runs["roff"], runs["lo"], runs["sid"], src, k, total, cap)
-    before = (expand_fill.LAUNCHES, expand_groups.LAUNCHES,
-              expand_runs.LAUNCHES)
-    fill = expand_fill.expand_fill(*fill_args)
+    # expand_fill and expand_groups share K5's entry: each call is counted
+    # on its own
+    counted = []
+    for fn, args, entry in (
+            (expand_fill.expand_fill, fill_args, "tj_expand_fill"),
+            (expand_groups.expand_groups, fill_args, "tj_expand_fill"),
+            (expand_runs.expand_runs, runs_args, "tj_expand_runs")):
+        before = launches[entry]
+        counted.append((fn(*args), launches[entry] - before))
+    (fill, n_fill), (groups, n_groups), (got, n_runs) = counted
     _equal(fill, expand_fill.expand_fill_plain(*fill_args))
-    _equal(expand_groups.expand_groups(*fill_args),
-           expand_groups.expand_groups_plain(*fill_args))
-    got = expand_runs.expand_runs(*runs_args)
+    _equal(groups, expand_groups.expand_groups_plain(*fill_args))
     _equal(got, expand_runs.expand_runs_plain(*runs_args))
     if joined:
         _equal(got, fill)   # the same pairs, from runs or from groups
     assert (fill[0][total:] == -1).all() and (fill[1][total:] == -1).all()
-    assert (expand_fill.LAUNCHES, expand_groups.LAUNCHES,
-            expand_runs.LAUNCHES) == tuple(b + (cap > 0) for b in before)
+    assert (n_fill, n_groups, n_runs) == (cap > 0,) * 3
 
 
 RUNS_CASES = ["long_runs", "one_slot", "below_total", "past_ends", "no_runs"]
@@ -309,10 +315,10 @@ def test_expand_runs_kernel(name):
     below the total and off the tile, a source index past both ends of
     src, and no run."""
     args = _runs_case(name)
-    before = expand_runs.LAUNCHES
+    before = launches["tj_expand_runs"]
     got = expand_runs.expand_runs(*args)
     _equal(got, expand_runs.expand_runs_plain(*args))
-    assert expand_runs.LAUNCHES == before + 1
+    assert launches["tj_expand_runs"] == before + 1
     if name == "past_ends":   # the case reaches outside src
         assert (got[0][:args[5]] == -1).any()
 
@@ -321,9 +327,9 @@ def test_merge_join_defaults_to_the_card():
     rng = np.random.default_rng(1)
     bk = rng.integers(1, 257, 4096).astype(np.int32)
     pk = rng.integers(1, 257, 4096).astype(np.int32)
-    before = expand_runs.LAUNCHES
+    before = launches["tj_expand_runs"]
     r, s = tpujoin_torch.merge_join(bk, pk, result_pad_multiple=1024)
-    assert expand_runs.LAUNCHES == before + 1   # ~16 matches/row: runs
+    assert launches["tj_expand_runs"] == before + 1   # ~16 matches/row: runs
     assert oracle.check_join(bk, pk, r, s) == 1
 
 
@@ -371,16 +377,16 @@ def test_chunked_merge_join_on_card_with_top_keys(chunk):
 
 def test_wrappers_count_launches_and_refuse_bad_input():
     x = torch.arange(4096, dtype=torch.int32, device="cuda")
-    before = merge_count.LAUNCHES
+    before = launches["tj_merge_count"]
     merge_count.merge_count(x, x)
-    assert merge_count.LAUNCHES == before + 1
+    assert launches["tj_merge_count"] == before + 1
     with pytest.raises(ValueError):
         merge_count.merge_count(x, x.long())
     with pytest.raises(ValueError):
         merge_count.merge_count(x, x.cpu())
-    before = merge_sort.HIST_LAUNCHES, merge_sort.PASS_LAUNCHES
+    before = launches["tj_sort_histogram"], launches["tj_sort_pass"]
     merge_sort.sort_pairs(x, x)
-    assert (merge_sort.HIST_LAUNCHES, merge_sort.PASS_LAUNCHES) == (
+    assert (launches["tj_sort_histogram"], launches["tj_sort_pass"]) == (
         before[0] + 1, before[1] + 4)
     hist = merge_sort.sort_histogram(x)
     with pytest.raises(ValueError):
@@ -414,10 +420,10 @@ def test_compact_ids_kernel(n, sel, dtype, k_cap_of):
     mask = _mask(n, sel, dtype)
     k = int(compact._keep(mask).sum())
     k_cap = {"short": k // 2, "exact": k, "long": k + 1000}[k_cap_of]
-    before = compact.IDS_LAUNCHES
+    before = launches["tj_compact_ids"]
     _equal(compact.compact_ids(mask, k_cap),
            compact.compact_ids_plain(mask, k_cap))
-    assert compact.IDS_LAUNCHES == before + (n > 0)
+    assert launches["tj_compact_ids"] == before + (n > 0)
 
 
 @pytest.mark.parametrize("n", [1, 15, 16, 17, (1 << 20) + 3])
@@ -429,11 +435,11 @@ def test_compact_ids_scan_kernel(n, fill, dtype):
     values), k_cap below, at and above the count."""
     mask = _mask(n, {"random": 0.5, "zero": 0.0, "all": 1.0}[fill], dtype)
     k = int(compact._keep(mask).sum())
-    before = compact.IDS_LAUNCHES
+    before = launches["tj_compact_ids"]
     for k_cap in (k // 2, k, k + 21):
         _equal(compact.compact_ids(mask, k_cap),
                compact.compact_ids_plain(mask, k_cap))
-    assert compact.IDS_LAUNCHES == before + 3
+    assert launches["tj_compact_ids"] == before + 3
 
 
 @pytest.mark.parametrize("offset", range(1, 16))
@@ -460,12 +466,12 @@ def test_compact_cols_kernel(ncols, n, sel, dtype):
     cols = [torch.from_numpy(rng.integers(IMIN, IMAX, n, endpoint=True)
                              .astype(np.int32)).cuda() for _ in range(ncols)]
     k = int(compact._keep(mask).sum())
-    before = compact.COLS_LAUNCHES
+    before = launches["tj_compact_cols"]
     for k_cap in (k // 3, k + 777):
         got, nz = compact.compact_cols(mask, cols, k_cap)
         want, wnz = compact.compact_cols_plain(mask, cols, k_cap)
         _equal((*got, nz), (*want, wnz))
-    assert compact.COLS_LAUNCHES == before + 2
+    assert launches["tj_compact_cols"] == before + 2
 
 
 def test_compact_wrappers_refuse_bad_input():
@@ -488,9 +494,9 @@ def test_compact_wrappers_refuse_bad_input():
 def test_filter_on_card_matches_cpu():
     vals = np.random.default_rng(4).uniform(0, 160, 300_001).astype(
         np.float32)
-    before = compact.IDS_LAUNCHES
+    before = launches["tj_compact_ids"]
     ids, total = flt.filter_device(vals, 80.0, 1 << 18)    # default: card
-    assert ids.is_cuda and compact.IDS_LAUNCHES == before + 1
+    assert ids.is_cuda and launches["tj_compact_ids"] == before + 1
     cids, ctotal = flt.filter_device(vals, 80.0, 1 << 18, device="cpu")
     assert int(total) == int(ctotal)
     assert torch.equal(ids.cpu(), cids)
@@ -509,14 +515,14 @@ def test_aggregate_on_card_matches_cpu(n, dom):
     rng = np.random.default_rng(n)
     keys = rng.integers(-dom, dom, n).astype(np.int32)
     vals = rng.integers(IMIN, IMAX, n, endpoint=True).astype(np.int32)
-    before = (compact.IDS_LAUNCHES, compact.COLS_LAUNCHES)
+    before = (launches["tj_compact_ids"], launches["tj_compact_cols"])
     got = tpujoin_torch.group_by_agg(keys, vals)
-    assert compact.COLS_LAUNCHES == before[1] + 1
+    assert launches["tj_compact_cols"] == before[1] + 1
     want = tpujoin_torch.group_by_agg(keys, vals, device="cpu")
     for g, w in zip(got, want, strict=True):
         np.testing.assert_array_equal(g, w)
     gk, gc = tpujoin_torch.group_by_count(keys)
-    assert compact.IDS_LAUNCHES == before[0] + 1
+    assert launches["tj_compact_ids"] == before[0] + 1
     ok, oc = oracle.group_by_count(keys)
     np.testing.assert_array_equal(gk, ok)
     np.testing.assert_array_equal(gc, oc)
@@ -532,9 +538,9 @@ def test_nested_loop_join_on_card():
     rng = np.random.default_rng(5)
     rk = rng.integers(1, 600, 3000).astype(np.int32)
     sk = rng.integers(1, 600, 2000).astype(np.int32)
-    before = compact.IDS_LAUNCHES
+    before = launches["tj_compact_ids"]
     r, s = tpujoin_torch.nested_loop_join(rk, sk)          # default: card
-    assert compact.IDS_LAUNCHES == before + 1
+    assert launches["tj_compact_ids"] == before + 1
     assert oracle.check_join(rk, sk, r, s, nested=True) == 1
     cr, cs = tpujoin_torch.nested_loop_join(rk, sk, device="cpu")
     np.testing.assert_array_equal(r, cr)
@@ -556,21 +562,21 @@ def test_carry_scan_kernel(n, values):
     ragged third tile and ~1000 tiles, with values that wrap."""
     x = (torch.ones(n, dtype=torch.int32, device="cuda") if values == "ones"
          else _full_range(n, n))
-    before = carry_scan.LAUNCHES
+    before = launches["tj_carry_scan"]
     want = carry_scan.carry_scan_plain(x)
     for _ in range(2):      # the status words are zeroed before each launch
         _equal((carry_scan.carry_scan(x),), (want,))
-    assert carry_scan.LAUNCHES == before + 2 * (n > 0)
+    assert launches["tj_carry_scan"] == before + 2 * (n > 0)
 
 
 @pytest.mark.parametrize("rolls", [0, 1, 4, 20, 1024, 1500])
 @pytest.mark.parametrize("tiles", [1, 3, 1000])
 def test_shift_loop_kernel(rolls, tiles):
     x = _full_range(tiles * shift_loop.TILE, rolls + tiles)
-    before = shift_loop.LAUNCHES
+    before = launches["tj_shift_loop"]
     _equal((shift_loop.shift_loop(x, rolls),),
            (shift_loop.shift_loop_plain(x, rolls),))
-    assert shift_loop.LAUNCHES == before + 1
+    assert launches["tj_shift_loop"] == before + 1
 
 
 @pytest.mark.parametrize("tbl_n", [1, 1000, 16384])
@@ -578,10 +584,10 @@ def test_shift_loop_kernel(rolls, tiles):
 def test_smem_gather_kernel(tbl_n, n):
     tbl = _full_range(tbl_n, 9)
     idx = torch.randint(0, tbl_n, (n,), dtype=torch.int32, device="cuda")
-    before = smem_gather.LAUNCHES
+    before = launches["tj_smem_gather"]
     _equal((smem_gather.smem_gather(tbl, idx),),
            (smem_gather.smem_gather_plain(tbl, idx),))
-    assert smem_gather.LAUNCHES == before + (n > 0)
+    assert launches["tj_smem_gather"] == before + (n > 0)
 
 
 def test_smem_gather_largest_table():
@@ -601,10 +607,10 @@ def test_stream_scale_kernel(n, offset):
     """On the i32 extremes, with the vector path (offset 0) and with a
     column that starts off 16-byte alignment (offset 1)."""
     x = _full_range(n + offset, n)[offset:]
-    before = stream.LAUNCHES
+    before = launches["tj_stream_scale"]
     got = stream.stream_scale(x)
     _equal((got,), (stream.stream_scale_plain(x),))
-    assert stream.LAUNCHES == before + (n > 0)
+    assert launches["tj_stream_scale"] == before + (n > 0)
     ext = torch.tensor([IMAX, IMIN, -1, 0, 1, IMAX - 1, IMIN + 1],
                        dtype=torch.int32, device="cuda")
     assert stream.stream_scale(ext).tolist() == [-2, 0, -2, 0, 2, -4, 2]
@@ -648,10 +654,10 @@ def test_slab_count_kernel(strategy, n, m, dist):
         b, p = rng.choice(ext, n), rng.choice(ext, m)
     b = torch.from_numpy(np.sort(b).astype(np.int32)).cuda()
     p = torch.from_numpy(np.sort(p).astype(np.int32)).cuda()
-    before = slab_count.LAUNCHES
+    before = launches["tj_slab_count"]
     _equal(slab_count.merge_count_v(b, p, strategy),
            slab_count.merge_count_v_plain(b, p))
-    assert slab_count.LAUNCHES == before + (m > 0)
+    assert launches["tj_slab_count"] == before + (m > 0)
 
 
 def test_slab_count_lo_above_every_build_key():
@@ -699,10 +705,10 @@ def test_slab_count_search_edges(strategy, case, offset):
     keys than a tile and the i32 extremes; offset 1 puts both columns one
     word past a 16-byte boundary, so the chunks are staged key by key."""
     b, p = (torch.cat([x[:offset], x])[offset:] for x in _slab_edge_keys(case))
-    before = slab_count.LAUNCHES
+    before = launches["tj_slab_count"]
     _equal(slab_count.merge_count_v(b, p, strategy),
            slab_count.merge_count_v_plain(b, p))
-    assert slab_count.LAUNCHES == before + 1
+    assert launches["tj_slab_count"] == before + 1
 
 
 def _uneven_runs(seed: int):
@@ -735,10 +741,10 @@ def test_run_variant_kernel(variant, case):
     else:
         cols, k, total, capacity = _uneven_runs(3)
     runs_phases.check_bases(cols[0], cols[3], cols[4], cols[5], k, capacity)
-    before = runs_phases.LAUNCHES
+    before = launches["tj_run_variant"]
     _equal(runs_phases.run_variant(*cols, k, total, capacity, variant),
            runs_phases.run_variant_plain(*cols, k, total, capacity, variant))
-    assert runs_phases.LAUNCHES == before + 1
+    assert launches["tj_run_variant"] == before + 1
 
 
 RUN_SEAMS = ("empty_runs", "long_runs", "clipped", "before_first")
@@ -803,11 +809,11 @@ def test_run_variant_seams(variant, case, total_at):
     cols, nonzero, total, capacity = _seam_runs(case, total_at)
     runs_phases.check_bases(cols[0], cols[3], cols[4], cols[5], nonzero,
                             capacity)
-    before = runs_phases.LAUNCHES
+    before = launches["tj_run_variant"]
     _equal(runs_phases.run_variant(*cols, nonzero, total, capacity, variant),
            runs_phases.run_variant_plain(*cols, nonzero, total, capacity,
                                          variant))
-    assert runs_phases.LAUNCHES == before + 1
+    assert launches["tj_run_variant"] == before + 1
 
 
 def _marks(n: int, every: int, seed: int) -> torch.Tensor:
@@ -828,11 +834,11 @@ def test_fill_forward_kernel(step, tiles, every):
     """Dense markers, markers rarer than a tile (tiles pass the value
     before them on), and none at all (every slot -1)."""
     mark = _marks(step * tiles, every, step + tiles + every)
-    before = forward_fill.LAUNCHES
+    before = launches["tj_fill_forward"]
     for _ in range(2):      # the status words are zeroed before each launch
         _equal((forward_fill.fill_forward(mark, step),),
                (forward_fill.fill_forward_plain(mark, step),))
-    assert forward_fill.LAUNCHES == before + 2
+    assert launches["tj_fill_forward"] == before + 2
 
 
 def test_scatter_markers_on_card():
@@ -854,10 +860,10 @@ def test_expand_fill_v_kernel(variant, state, extra, step):
     runs, groups, src, k, ng, total, _ = _state(state, extra)
     args = (runs["roff"], runs["sid"], groups["goff"], groups["glo"],
             groups["gnb"], src, k, ng, total, total + extra)
-    before = fill_phases.LAUNCHES
+    before = launches["tj_expand_fill_v"]
     got = fill_phases.expand_fill_v(*args, step, variant)
     _equal(got, fill_phases.expand_fill_v_plain(*args, step, variant))
-    assert fill_phases.LAUNCHES == before + (total + extra > 0)
+    assert launches["tj_expand_fill_v"] == before + (total + extra > 0)
     if fill_phases.VARIANTS[variant] == 0 and total + extra:
         cap = total + extra
         _equal([c[:cap] for c in got],
@@ -891,11 +897,11 @@ def test_op_chain_kernel(kind, rows, ops, steps):
     tiles: 64 ops (the row kinds move only at R >= 256), 5 ops (they move
     at every R), and none; shifts 5, a negative one and INT32_MAX."""
     x = _full_range(rows * op_chain.LANES, rows + ops).view(rows, -1)
-    before = op_chain.LAUNCHES
+    before = launches["tj_op_chain"]
     for sh in (5, -3, IMAX):
         _equal((op_chain.op_chain(x, sh, kind, ops, steps),),
                (op_chain.op_chain_plain(x, sh, kind, ops, steps),))
-    assert op_chain.LAUNCHES == before + 3
+    assert launches["tj_op_chain"] == before + 3
 
 
 # shifts on the seams of the kernel's layouts: lane offsets 0, 1 and 31,
@@ -909,11 +915,11 @@ SEAMS = [0, 1, 31, 32, 33, 127, 128, 255, 256, 511, -1, int(IMIN), int(IMAX)]
 @pytest.mark.parametrize("ops", [0, 1, 5, 64])
 def test_op_chain_seam_shifts(kind, rows, ops):
     x = _full_range(rows * op_chain.LANES, rows + ops + 7).view(rows, -1)
-    before = op_chain.LAUNCHES
+    before = launches["tj_op_chain"]
     for sh in SEAMS:
         _equal((op_chain.op_chain(x, sh, kind, ops, 2),),
                (op_chain.op_chain_plain(x, sh, kind, ops, 2),))
-    assert op_chain.LAUNCHES == before + len(SEAMS)
+    assert launches["tj_op_chain"] == before + len(SEAMS)
 
 
 @pytest.mark.parametrize("rows", [1, 8, 128])
@@ -924,10 +930,10 @@ def test_select_chain_kernel(rows, ops, blocks):
     shifts = _full_range(max(ops, 1), ops)
     shifts[1::2] = torch.arange(1, shifts[1::2].numel() + 1,
                                 dtype=torch.int32, device="cuda") * 37
-    before = select_chain.LAUNCHES
+    before = launches["tj_select_chain"]
     _equal((select_chain.select_chain(x, shifts, ops, rows),),
            (select_chain.select_chain_plain(x, shifts, ops, rows),))
-    assert select_chain.LAUNCHES == before + 1
+    assert launches["tj_select_chain"] == before + 1
 
 
 def _warp_span(rows: int) -> int:
@@ -959,10 +965,10 @@ def _chain_shifts(kind: str, rows: int, ops: int) -> torch.Tensor:
 def test_select_chain_seams(rows, ops, kind):
     x = _full_range(7 * rows * select_chain.LANES, rows + ops)
     shifts = _chain_shifts(kind, rows, ops)
-    before = select_chain.LAUNCHES
+    before = launches["tj_select_chain"]
     _equal((select_chain.select_chain(x, shifts, ops, rows),),
            (select_chain.select_chain_plain(x, shifts, ops, rows),))
-    assert select_chain.LAUNCHES == before + 1
+    assert launches["tj_select_chain"] == before + 1
 
 
 SHIFT_SETS = {"program": [37, 74, 111, 148, 185, 222],
@@ -976,10 +982,10 @@ SHIFT_SETS = {"program": [37, 74, 111, 148, 185, 222],
 def test_flat_roll_kernel(shifts, rolls, steps):
     x = _full_range(steps * flat_roll.STEP, steps + rolls)
     ks = torch.tensor(SHIFT_SETS[shifts], dtype=torch.int32, device="cuda")
-    before = flat_roll.LAUNCHES
+    before = launches["tj_flat_roll"]
     got = flat_roll.flat_roll(x, ks, rolls)
     _equal((got,), (flat_roll.flat_roll_plain(x, ks, rolls),))
-    assert flat_roll.LAUNCHES == before + 1
+    assert launches["tj_flat_roll"] == before + 1
     if rolls == 1:
         want = torch.roll(x.view(-1, flat_roll.TILE), SHIFT_SETS[shifts][0] %
                           flat_roll.TILE, 1).reshape(-1)
@@ -1009,35 +1015,35 @@ def test_cost_wrappers_refuse_bad_input():
         op_chain.op_chain(tile, 5, "roll_diag")
 
 
-# capability-probe kernel -> (its module, its counter's prefix, its program)
-MOSAIC = {"roll": (mosaic, "ROLL", probe_mosaic),
-          "smem_dyn": (mosaic, "SMEM_DYN", probe_mosaic),
-          "vmem_dyn": (mosaic, "VMEM_DYN", probe_mosaic),
-          "fori": (mosaic, "FORI", probe_mosaic),
-          "smem_block": (mosaic, "SMEM_BLOCK", probe_mosaic),
-          "hbm_to_smem": (mosaic2, "HBM_TO_SMEM", probe_mosaic2),
-          "dyn_vec_load": (mosaic2, "DYN_VEC_LOAD", probe_mosaic2),
-          "sublane_roll": (mosaic3, "SUBLANE_ROLL", probe_mosaic3),
-          "row_dma_2d": (mosaic3, "ROW_DMA_2D", probe_mosaic3),
-          "flat_rotate": (mosaic3, "FLAT_ROTATE", probe_mosaic3)}
+# capability-probe kernel -> (its module, its program)
+MOSAIC = {"roll": (mosaic, probe_mosaic),
+          "smem_dyn": (mosaic, probe_mosaic),
+          "vmem_dyn": (mosaic, probe_mosaic),
+          "fori": (mosaic, probe_mosaic),
+          "smem_block": (mosaic, probe_mosaic),
+          "hbm_to_smem": (mosaic2, probe_mosaic2),
+          "dyn_vec_load": (mosaic2, probe_mosaic2),
+          "sublane_roll": (mosaic3, probe_mosaic3),
+          "row_dma_2d": (mosaic3, probe_mosaic3),
+          "flat_rotate": (mosaic3, probe_mosaic3)}
 
 
 @pytest.mark.parametrize("name,edge", [
-    (name, edge) for name, (_, _, program) in MOSAIC.items()
+    (name, edge) for name, (_, program) in MOSAIC.items()
     for edge in [None] + program.EDGES[name]])
 def test_mosaic_kernel(name, edge):
     """Each capability-probe kernel at its program's input (edge None) and,
     on full-range data, at the scalars of its program's EDGES."""
-    mod, prefix, program = MOSAIC[name]
+    mod, program = MOSAIC[name]
     args = program.inputs("cuda")[name]
     if edge is not None:
         args = [_full_range(t.numel(), len(edge) + t.numel()).view(t.shape)
                 for t in args[:-1]]
         args.append(torch.tensor(edge, dtype=torch.int32, device="cuda"))
-    before = getattr(mod, f"{prefix}_LAUNCHES")
+    before = launches[f"tj_mosaic_{name}"]
     got = getattr(mod, name)(*args)
     _equal((got,), (getattr(mod, f"{name}_plain")(*args),))
-    assert getattr(mod, f"{prefix}_LAUNCHES") == before + 1
+    assert launches[f"tj_mosaic_{name}"] == before + 1
 
 
 @pytest.mark.parametrize("row", [40, 0, 1, 8, 223, 224, -1, -31, -32, 225,
@@ -1078,9 +1084,9 @@ def test_v1_dense_materialize_on_card_matches_cpu(n, m, dom, pad):
     rng = np.random.default_rng(n + m)
     bk = rng.integers(1, dom + 1, n).astype(np.int32)
     pk = rng.integers(1, dom + 1, m).astype(np.int32)
-    before = forward_fill.LAUNCHES
+    before = launches["tj_fill_forward"]
     r, s = tpujoin_torch.hash_join(bk, pk, result_pad_multiple=pad)
-    assert forward_fill.LAUNCHES == before + 1
+    assert launches["tj_fill_forward"] == before + 1
     cr, cs = tpujoin_torch.hash_join(bk, pk, device="cpu",
                                      result_pad_multiple=pad)
     np.testing.assert_array_equal(r, cr)
@@ -1102,10 +1108,10 @@ def test_match_split_on_card_matches_cpu(dom):
     rng = np.random.default_rng(dom)
     bk = rng.integers(1, dom + 1, 20_000).astype(np.int32)
     pk = rng.integers(1, dom + 1, 30_001).astype(np.int32)
-    before = compact.IDS_LAUNCHES
+    before = launches["tj_compact_ids"]
     semi = tpujoin_torch.semi_join(bk, pk)
-    assert compact.IDS_LAUNCHES - before == (1 if len(semi) in (0, 30_001)
-                                             else 2)
+    assert launches["tj_compact_ids"] - before == (
+        1 if len(semi) in (0, 30_001) else 2)
     np.testing.assert_array_equal(semi, tpujoin_torch.semi_join(
         bk, pk, device="cpu"))
     np.testing.assert_array_equal(
@@ -1134,7 +1140,7 @@ def test_pushdown_compact3_on_card_matches_cpu(keep):
             "v": rng.random(n).astype(np.float32)}
     on_card = tpujoin_torch.Table.from_numpy(cols, "cuda")
     on_cpu = tpujoin_torch.Table.from_numpy(cols, "cpu")
-    before = compact.LAUNCHES
+    before = launches["tj_compact_cols"]
     got = multi_join._push(on_card, lambda v: v < keep, "v",
                            multi_join.S_PAD_KEY, ["k"], 4096)
     want = multi_join._push(on_cpu, lambda v: v < keep, "v",
@@ -1142,7 +1148,7 @@ def test_pushdown_compact3_on_card_matches_cpu(keep):
     if keep == 0.0:
         assert got == want == (None, None)
         return
-    assert compact.LAUNCHES == before + 1
+    assert launches["tj_compact_cols"] == before + 1
     _equal(got, tuple(w.cuda() for w in want))
 
 
@@ -1173,10 +1179,10 @@ def test_distributed_program_on_card_matches_cpu(program):
         "semi": lambda mesh: (sj.distributed_semi_join(rk, sk, mesh=mesh),),
         "anti": lambda mesh: (sj.distributed_anti_join(rk, sk, mesh=mesh),),
     }[program]
-    before = merge_count.LAUNCHES
+    before = launches["tj_merge_count"]
     got = run(make_mesh(4, device="cuda"))
     want = run(make_mesh(4, device="cpu"))
-    assert merge_count.LAUNCHES >= before + 4
+    assert launches["tj_merge_count"] >= before + 4
     if program == "rle":
         assert got[1] == want[1] == oracle.join_count(rk, sk)
         for g, w in zip(got[0], want[0], strict=True):
@@ -1215,3 +1221,100 @@ def test_distributed_join_on_an_nccl_group_of_one():
                                  pipeline_chunks=2)
     for g, w in zip(got, want, strict=True):
         np.testing.assert_array_equal(g, w)
+
+
+# the program's spans (tpujoin_torch/trace.py) on the card: materialize
+# path -> (rows a side, key domain)
+TRACED_PATHS = {"expand": (1 << 20, 10**9), "runs": (1 << 16, 4096),
+                "groups": (1 << 16, 256), "fill": (1 << 16, 256)}
+
+
+def _traced_join(rows: int, dom: int, path: str, seed: int = 0):
+    """build, probe_count and the materialize of ``path`` on the card, as
+    the benchmark runs them (the count's totals read between), the
+    groups path called directly since the planner takes fill before it.
+    Returns the number of host syncs torch flags in the program's calls
+    (sync debug mode, every warning caught)."""
+    import warnings
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bk, pk = (torch.randint(1, dom + 1, (rows,), generator=gen,
+                            dtype=torch.int32, device="cuda")
+              for _ in range(2))
+    torch.cuda.synchronize()
+
+    def flagged(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, sum("synchroniz" in str(w.message) for w in caught)
+
+    from tpujoin_torch.ops import merge_join as mj
+
+    def count():
+        ht = hash_join.build(bk)
+        return ht, *mj.probe_count(ht, pk)
+
+    (ht, state, total, nonzero), n_count = flagged(count)
+    total, nonzero = int(total), int(nonzero)
+    caps = (round_up(nonzero, 1024), round_up(total, 1 << 20))
+    if path == "groups":
+        with trace.span("materialize.groups", state.counts, ht.trace_id):
+            _, n_mat = flagged(lambda: mj.probe_materialize_groups(
+                ht, state, *caps, total=total, nonzero=nonzero))
+    else:
+        (name, _, _), n_mat = flagged(lambda: mj.plan_materialize(
+            ht, state, *caps, total=total, nonzero=nonzero))
+        assert name == path
+    torch.cuda.synchronize()
+    return n_count + n_mat
+
+
+@pytest.mark.parametrize("path", sorted(TRACED_PATHS))
+def test_sync_spans_are_the_syncs_torch_flags(path):
+    """Every host sync a join makes on each materialize path is a sync.*
+    record, and only those: their count equals the syncs torch's sync
+    debug mode flags in the program's calls."""
+    _traced_join(*TRACED_PATHS[path], path)          # warm-up, untraced
+    trace.clear()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        flagged = _traced_join(*TRACED_PATHS[path], path)
+    syncs = [r["name"] for r in trace.records() if r["kind"] == "sync"]
+    assert flagged > 0 and len(syncs) == flagged, syncs
+
+
+def test_device_spans_nest_and_the_phases_sum_to_their_span():
+    """One ref_low-sized join (100M x 100M, keys to 1e9) under the
+    profiler: each child's device span lies inside its parent's, and the
+    children of build and of count sum to within 5% of it. The spans
+    draw no row on the device's timeline, whose rows are device work."""
+    rows, dom = 100_000_000, 10**9
+    _traced_join(rows, dom, "expand", seed=1)
+    trace.clear()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _traced_join(rows, dom, "expand", seed=1)
+    raw = [r for r in trace._records if r[5] is not None]
+    by_name = {r[0]: r for r in raw}
+    assert len(by_name) == len(raw)           # one join, each name once
+    for name, parent, *_, start, end in raw:
+        if parent is None:
+            continue
+        p_start, p_end = by_name[parent][5:]
+        assert p_start.elapsed_time(start) >= 0, name
+        assert end.elapsed_time(p_end) >= 0, name
+    ms = {r["name"]: r["device_ms"] for r in trace.records()
+          if r["device_ms"] is not None}
+    for parent in ("build", "count"):
+        parts = sum(v for k, v in ms.items() if k.startswith(parent + "."))
+        assert abs(parts - ms[parent]) <= 0.05 * ms[parent], (parent, ms)
+    assert trace.records() == trace.records()      # resolved once, kept
+    assert not [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name.startswith(trace.PREFIX)]

@@ -18,6 +18,7 @@ from tpujoin.kernels.expand_fill import expand_fill as jax_expand_fill
 from tpujoin.kernels.expand_groups import expand_groups as jax_expand_groups
 from tpujoin_torch.kernels import expand_fill as ef
 from tpujoin_torch.kernels import expand_groups as eg
+from tpujoin_torch.trace import launches
 
 K, G, N, CAP = 1024, 256, 32768, 32768   # rows of runs, groups, src; slots
 SRC_SLAB = 16384
@@ -166,7 +167,7 @@ def test_plain_versions_work_in_chunks(monkeypatch):
 
 def test_cpu_tensors_take_the_plain_version_and_bad_sizes_raise():
     cols, (k, ng, total) = layout(*CASES["adjacent_groups"])
-    before = (ef.LAUNCHES, eg.LAUNCHES)
+    before = launches["tj_expand_fill"]   # K5's entry, both wrappers'
     for fn, plain in ((ef.expand_fill, ef.expand_fill_plain),
                       (eg.expand_groups, eg.expand_groups_plain)):
         for got, want in zip(fn(*_torch(cols), k, ng, total, 64),
@@ -176,4 +177,4 @@ def test_cpu_tensors_take_the_plain_version_and_bad_sizes_raise():
             fn(*_torch(cols), K + 1, ng, total, 64)    # more runs than rows
         with pytest.raises(ValueError):
             fn(*_torch(cols), k, ng, 2**31, 64)        # not an i32 total
-    assert (ef.LAUNCHES, eg.LAUNCHES) == before
+    assert launches["tj_expand_fill"] == before

@@ -14,6 +14,7 @@ import torch
 
 from tpujoin.kernels.expand_runs import expand_runs as jax_expand_runs
 from tpujoin_torch.kernels import expand_runs as er
+from tpujoin_torch.trace import launches
 
 K, N, CAP = 1024, 32768, 32768   # rows of runs and of src; slots
 WIDE_K = 4096                    # rows of runs of the one-slot case
@@ -129,7 +130,7 @@ def test_source_past_its_end_reads_minus_one():
 def test_cpu_tensors_take_the_plain_version_and_bad_sizes_raise():
     cols, (k, total) = layout(*CASES["adjacent_runs"])
     cols = [torch.from_numpy(c) for i, c in enumerate(cols) if i != 2]
-    before = er.LAUNCHES
+    before = launches["tj_expand_runs"]
     for got, want in zip(er.expand_runs(*cols, k, total, 64),
                          er.expand_runs_plain(*cols, k, total, 64)):
         assert torch.equal(got, want)
@@ -137,4 +138,4 @@ def test_cpu_tensors_take_the_plain_version_and_bad_sizes_raise():
         er.expand_runs(*cols, K + 1, total, 64)
     with pytest.raises(ValueError):
         er.expand_runs(*cols, k, total, -1)
-    assert er.LAUNCHES == before
+    assert launches["tj_expand_runs"] == before

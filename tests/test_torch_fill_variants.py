@@ -27,6 +27,7 @@ from tpujoin.kernels import expand_fill as jax_ef
 from tpujoin.kernels import expand_groups as jax_eg
 from tpujoin_torch.kernels import fill_phases as fp
 from tpujoin_torch.probes import fill_variants
+from tpujoin_torch.trace import launches
 
 G = 4
 STEP = 16384
@@ -69,9 +70,9 @@ def test_pair_variants_match_expand_fill_v(jax_fv, state, variant):
     total = cols[-1]
     assert total == 39_964 and cap == 3 * STEP
     jr, js = _jax(jax_fv, cols, cap, variant)
-    before = fp.LAUNCHES
+    before = launches["tj_expand_fill_v"]
     r, s = fp.expand_fill_v(*cols, cap, STEP, variant)
-    assert fp.LAUNCHES == before and r.shape == (cap,)
+    assert launches["tj_expand_fill_v"] == before and r.shape == (cap,)
     np.testing.assert_array_equal(r.numpy(), jr)
     np.testing.assert_array_equal(s.numpy(), js)
     assert fill_variants.check_analytic(r, s, total)
@@ -140,7 +141,7 @@ def test_wrapper_refuses_bad_input(state):
 
 
 def test_fill_variants_runs_small_on_cpu(capsys):
-    before = fp.LAUNCHES
+    before = launches["tj_expand_fill_v"]
     assert fill_variants.main(["--device", "cpu", "--groups", str(G)]) == 0
     out = capsys.readouterr()
     lines = [json.loads(line) for line in out.out.splitlines()]
@@ -153,7 +154,7 @@ def test_fill_variants_runs_small_on_cpu(capsys):
     assert all(x["guardv3_equals_full"] and x["analytic"] for x in checks)
     assert all(x["device"] == "cpu" for x in lines)
     assert out.err.rstrip().endswith("DONE")
-    assert fp.LAUNCHES == before
+    assert launches["tj_expand_fill_v"] == before
 
 
 def test_fill_variants_check_raises(monkeypatch):

@@ -14,6 +14,7 @@ from test_torch_probes import load_exp
 
 from tpujoin_torch.kernels import forward_fill as ff
 from tpujoin_torch.probes import probe_fill
+from tpujoin_torch.trace import launches
 
 LANES = 128
 
@@ -42,9 +43,9 @@ def _marks(n: int, seed: int) -> np.ndarray:
 def test_matches_fill_forward(jax_pf, step, steps):
     mark = _marks(step * steps, step).reshape(-1, LANES)
     want = np.asarray(jax_pf.fill_forward(jnp.asarray(mark), step))
-    before = ff.LAUNCHES
+    before = launches["tj_fill_forward"]
     got = ff.fill_forward(torch.from_numpy(mark), step)
-    assert ff.LAUNCHES == before
+    assert launches["tj_fill_forward"] == before
     assert got.shape == mark.shape and got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     flat = want.reshape(-1)
@@ -97,7 +98,7 @@ def test_wrapper_refuses_bad_shapes():
 
 
 def test_probe_fill_runs_small_on_cpu(capsys):
-    before = ff.LAUNCHES
+    before = launches["tj_fill_forward"]
     assert probe_fill.main(["--device", "cpu", "--rows", "20000",
                             "--key-max", "200"]) == 0
     out = capsys.readouterr()
@@ -109,7 +110,7 @@ def test_probe_fill_runs_small_on_cpu(capsys):
     assert lines[-1]["ok"] is True and lines[-1]["slots"] == lines[1]["pairs"]
     assert all(x["device"] == "cpu" for x in lines)
     assert "parity on all" in out.err and out.err.rstrip().endswith("DONE")
-    assert ff.LAUNCHES == before
+    assert launches["tj_fill_forward"] == before
 
 
 def test_probe_fill_check_raises(monkeypatch):

@@ -20,6 +20,7 @@ from test_torch_probes import load_exp
 
 from tpujoin_torch.kernels import flat_roll as fr
 from tpujoin_torch.probes import probe_flatroll
+from tpujoin_torch.trace import launches
 
 IMIN, IMAX = np.iinfo(np.int32).min, np.iinfo(np.int32).max
 JAX_KS = list(probe_flatroll.CHECK_KS) + [1024, 1500, IMAX]
@@ -45,10 +46,10 @@ def _np_flat_roll(x: np.ndarray, ks) -> np.ndarray:
 
 
 def _port(x, ks):
-    before = fr.LAUNCHES
+    before = launches["tj_flat_roll"]
     got = fr.flat_roll(torch.from_numpy(x),
                        torch.tensor(ks, dtype=torch.int32), len(ks))
-    assert fr.LAUNCHES == before and got.dtype == torch.int32
+    assert launches["tj_flat_roll"] == before and got.dtype == torch.int32
     return got.numpy()
 
 
@@ -105,7 +106,7 @@ def test_wrapper_refuses_bad_input():
 
 
 def test_probe_flatroll_runs_small_on_cpu(capsys):
-    before = fr.LAUNCHES
+    before = launches["tj_flat_roll"]
     assert probe_flatroll.main(["--device", "cpu", "--n", "65536"]) == 0
     out = capsys.readouterr()
     lines = [json.loads(line) for line in out.out.splitlines()]
@@ -113,7 +114,7 @@ def test_probe_flatroll_runs_small_on_cpu(capsys):
     assert [x["rolls"] for x in lines[1:]] == list(probe_flatroll.ROLLS)
     assert all(x["device"] == "cpu" for x in lines)
     assert "k=1023: OK" in out.err and out.err.rstrip().endswith("DONE")
-    assert fr.LAUNCHES == before
+    assert launches["tj_flat_roll"] == before
 
 
 @pytest.mark.parametrize("wrong_at", ["check", "throughput"])

@@ -26,6 +26,7 @@ from test_torch_probes import load_exp
 
 from tpujoin_torch.kernels import mosaic, mosaic2, mosaic3
 from tpujoin_torch.probes import probe_mosaic, probe_mosaic2, probe_mosaic3
+from tpujoin_torch.trace import launches
 
 IMIN, IMAX = int(np.iinfo(np.int32).min), int(np.iinfo(np.int32).max)
 
@@ -43,9 +44,7 @@ PORT = {"roll": (mosaic, "roll"), "smem_dyn": (mosaic, "smem_dyn"),
         "sublane_roll": (mosaic3, "sublane_roll"),
         "2d_row_dma": (mosaic3, "row_dma_2d"),
         "flat_rotate": (mosaic3, "flat_rotate")}
-COUNTERS = ((mosaic, ("ROLL", "SMEM_DYN", "VMEM_DYN", "FORI", "SMEM_BLOCK")),
-            (mosaic2, ("HBM_TO_SMEM", "DYN_VEC_LOAD")),
-            (mosaic3, ("SUBLANE_ROLL", "ROW_DMA_2D", "FLAT_ROTATE")))
+ENTRIES = tuple(f"tj_mosaic_{fn}" for _, fn in PORT.values())
 
 # scalars inside the TPU kernels' domain, beyond the programs' own
 JAX_CASES = {
@@ -121,8 +120,7 @@ def jax_kernels():
 
 
 def _launches():
-    return [getattr(mod, f"{c}_LAUNCHES") for mod, cs in COUNTERS
-            for c in cs]
+    return [launches[entry] for entry in ENTRIES]
 
 
 def _port(name, jax_args):

@@ -15,6 +15,7 @@ from test_torch_probes import load_exp
 
 from tpujoin_torch.kernels import select_chain as sc
 from tpujoin_torch.probes import probe_opcost
+from tpujoin_torch.trace import launches
 
 IMIN, IMAX = np.iinfo(np.int32).min, np.iinfo(np.int32).max
 BLOCKS = 3
@@ -44,9 +45,9 @@ def test_matches_run(jax_po, rows, ops, shifts):
     x, s = _inputs(rows, ops, shifts)
     want = np.asarray(jax_po.run(jnp.asarray(x.reshape(-1, sc.LANES)),
                                  jnp.asarray(s), ops, rows)).reshape(-1)
-    before = sc.LAUNCHES
+    before = launches["tj_select_chain"]
     got = sc.select_chain(torch.from_numpy(x), torch.from_numpy(s), ops, rows)
-    assert sc.LAUNCHES == before and got.dtype == torch.int32
+    assert launches["tj_select_chain"] == before and got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     assert not np.array_equal(want, x)
 
@@ -89,7 +90,7 @@ def test_wrapper_refuses_bad_input():
 
 
 def test_probe_opcost_runs_small_on_cpu(capsys):
-    before = sc.LAUNCHES
+    before = launches["tj_select_chain"]
     assert probe_opcost.main(["--device", "cpu", "--n", "32768"]) == 0
     out = capsys.readouterr()
     lines = [json.loads(line) for line in out.out.splitlines()]
@@ -99,7 +100,7 @@ def test_probe_opcost_runs_small_on_cpu(capsys):
     assert lines[0]["marginal_ns_per_op"] is None
     assert lines[1]["marginal_ns_per_op"] is not None
     assert "R=128 ops=33" in out.err and out.err.rstrip().endswith("DONE")
-    assert sc.LAUNCHES == before
+    assert launches["tj_select_chain"] == before
 
 
 def test_probe_opcost_check_raises(monkeypatch):

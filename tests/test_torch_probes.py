@@ -26,6 +26,7 @@ from tpujoin_torch.kernels import shift_loop as sl
 from tpujoin_torch.kernels import smem_gather as sg
 from tpujoin_torch.kernels import stream as st
 from tpujoin_torch.probes import bench_mat2, primitives
+from tpujoin_torch.trace import launches
 
 REPO = Path(__file__).resolve().parent.parent
 IMIN, IMAX = np.iinfo(np.int32).min, np.iinfo(np.int32).max
@@ -111,9 +112,9 @@ def test_carry_scan_matches_pallas_scan(jax_mat2, values):
         out_shape=jax.ShapeDtypeStruct((n,), jnp.int32),
         scratch_shapes=[pltpu.SMEM((1,), jnp.int32)], interpret=True)
     want = np.asarray(scan(jnp.asarray(x)))
-    before = cs.LAUNCHES
+    before = launches["tj_carry_scan"]
     got = cs.carry_scan(torch.from_numpy(x))
-    assert got.dtype == torch.int32 and cs.LAUNCHES == before
+    assert got.dtype == torch.int32 and launches["tj_carry_scan"] == before
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(want, _wrapped_cumsum(x))
 
@@ -155,9 +156,9 @@ def test_smem_gather_matches_vmem_gather():
         out_shape=jax.ShapeDtypeStruct((tile,), jnp.int32),
         in_specs=[vmem, vmem], out_specs=vmem, interpret=True)
     want = np.asarray(gather(jnp.asarray(tbl), jnp.asarray(idx)))
-    before = sg.LAUNCHES
+    before = launches["tj_smem_gather"]
     got = sg.smem_gather(torch.from_numpy(tbl), torch.from_numpy(idx))
-    assert sg.LAUNCHES == before
+    assert launches["tj_smem_gather"] == before
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
         want, np.asarray(jnp.take(jnp.asarray(tbl), jnp.asarray(idx))))
@@ -175,9 +176,9 @@ def test_stream_scale_matches_stream_copy():
                                memory_space=pltpu.VMEM),
         out_shape=jax.ShapeDtypeStruct((n,), jnp.int32), interpret=True)
     want = np.asarray(stream(jnp.asarray(x)))
-    before = st.LAUNCHES
+    before = launches["tj_stream_scale"]
     got = st.stream_scale(torch.from_numpy(x))
-    assert st.LAUNCHES == before
+    assert launches["tj_stream_scale"] == before
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(want, np.asarray(jnp.asarray(x) * 2))
     assert want[0] == -2 and want[2] == 0     # 2 * IMAX, 2 * IMIN wrap
@@ -238,7 +239,7 @@ def _jax_primitives_names():
 
 
 def test_primitives_runs_small_on_cpu(capsys):
-    before = (st.LAUNCHES, sg.LAUNCHES)
+    before = (launches["tj_stream_scale"], launches["tj_smem_gather"])
     assert primitives.main(["--device", "cpu", "--rows", "65536"]) == 0
     lines = [json.loads(line)
              for line in capsys.readouterr().out.splitlines()]
@@ -252,7 +253,7 @@ def test_primitives_runs_small_on_cpu(capsys):
             assert set(line) == {"bench", "seconds", "gbps", "hbm_frac",
                                  "device"}
             assert line["hbm_frac"] is None     # no HBM on the CPU
-    assert (st.LAUNCHES, sg.LAUNCHES) == before
+    assert (launches["tj_stream_scale"], launches["tj_smem_gather"]) == before
     assert primitives.stream_rows(100_000_000) == 99_614_720
 
 

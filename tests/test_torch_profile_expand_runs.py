@@ -15,6 +15,7 @@ from test_torch_probes import load_exp
 
 from tpujoin_torch.kernels import runs_phases as rp
 from tpujoin_torch.probes import profile_expand_runs as per
+from tpujoin_torch.trace import launches
 
 IMIN, IMAX = np.iinfo(np.int32).min, np.iinfo(np.int32).max
 
@@ -32,9 +33,10 @@ def _both(jax_per, cols, nonzero, total, capacity, variant):
     jr, js = jax_per.run_variant(*(jnp.asarray(c) for c in np_cols),
                                  jnp.asarray([nonzero, total], jnp.int32),
                                  capacity, variant)
-    before = rp.LAUNCHES
+    before = launches["tj_run_variant"]
     r, s = rp.run_variant(*cols, nonzero, total, capacity, variant)
-    assert rp.LAUNCHES == before and r.dtype == s.dtype == torch.int32
+    assert launches["tj_run_variant"] == before
+    assert r.dtype == s.dtype == torch.int32
     np.testing.assert_array_equal(r.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
     return r, s
@@ -145,7 +147,7 @@ def test_wrapper_refuses_bad_input():
 
 
 def test_profile_expand_runs_runs_small_on_cpu(capsys):
-    before = rp.LAUNCHES
+    before = launches["tj_run_variant"]
     assert per.main(["--device", "cpu", "--runs", "3000"]) == 0
     out = capsys.readouterr()
     lines = [json.loads(line) for line in out.out.splitlines()]
@@ -154,7 +156,7 @@ def test_profile_expand_runs_runs_small_on_cpu(capsys):
                and x["device"] == "cpu" and x["seconds"] > 0 for x in lines)
     assert "PASS (800 slots' build positions outside" in out.err
     assert out.err.rstrip().endswith("DONE")
-    assert rp.LAUNCHES == before
+    assert launches["tj_run_variant"] == before
 
 
 def test_profile_expand_runs_check_raises(monkeypatch):

@@ -20,6 +20,7 @@ from test_torch_probes import load_exp
 
 from tpujoin_torch.kernels import op_chain as oc
 from tpujoin_torch.probes import roll_cost
+from tpujoin_torch.trace import launches
 
 IMIN, IMAX = np.iinfo(np.int32).min, np.iinfo(np.int32).max
 SH = 5
@@ -53,9 +54,9 @@ def _check(mod, kind: str, rows: int, ops: int) -> np.ndarray:
     x = _tile(rows, rows + ops)
     want = np.asarray(mod.run(jnp.asarray(x), jnp.array([SH], jnp.int32),
                               kind, rows))
-    before = oc.LAUNCHES
+    before = launches["tj_op_chain"]
     got = oc.op_chain(torch.from_numpy(x), SH, kind, ops)
-    assert oc.LAUNCHES == before
+    assert launches["tj_op_chain"] == before
     assert got.shape == x.shape and got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     return x, want
@@ -132,7 +133,7 @@ def test_wrapper_refuses_bad_input():
 
 
 def test_roll_cost_runs_small_on_cpu(capsys):
-    before = oc.LAUNCHES
+    before = launches["tj_op_chain"]
     assert roll_cost.main(["--device", "cpu", "--rows", "16", "256",
                            "--ops", "9"]) == 0
     out = capsys.readouterr()
@@ -143,7 +144,7 @@ def test_roll_cost_runs_small_on_cpu(capsys):
                and x["ops"] == 9 and x["steps"] == oc.STEPS for x in lines)
     assert "R= 256 iota_add" in out.err
     assert out.err.rstrip().endswith("DONE")
-    assert oc.LAUNCHES == before
+    assert launches["tj_op_chain"] == before
 
 
 def test_roll_cost_check_raises(monkeypatch):

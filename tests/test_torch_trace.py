@@ -1,0 +1,173 @@
+"""tpujoin_torch.trace on the CPU: spans record nothing without a profiler;
+under one, a v2 join gives its named span tree in one join, marks every
+host sync of its path and shows in the profiler's events; the record
+deque stays bounded; the CPU path launches no kernel."""
+import numpy as np
+import pytest
+import torch
+
+from tpujoin_torch import trace
+from tpujoin_torch.kernels import _build
+from tpujoin_torch.ops import hash_join, merge_join
+from tpujoin_torch.utils.shapes import round_up
+
+CPU = [torch.profiler.ProfilerActivity.CPU]
+
+# path -> (key domain, the sync records of its materialize, in order)
+PATHS = {"expand": (10**6, ["sync.total", "sync.neg", "sync.checked.total",
+                            "sync.checked.nonzero"]),
+         "runs": (300, ["sync.checked.total", "sync.checked.nonzero",
+                        "sync.fits"]),
+         "fill": (40, ["sync.group_heads", "sync.checked.total",
+                       "sync.checked.nonzero", "sync.fits"])}
+
+# each span's parent on a path that takes its first try
+PARENTS = {"build": None, "build.ids": "build", "build.sort": "build",
+           "count": None, "count.ids": "count", "count.sort": "count",
+           "count.merge": "count", "count.totals": "count",
+           "materialize": None, "compact": "materialize.{path}",
+           "offsets": "materialize.{path}", "pairs": "materialize.{path}",
+           "materialize.{path}": "materialize",
+           "group_heads": "materialize.{path}",
+           "sync.group_heads": "group_heads", "sync.total": "pairs",
+           "sync.neg": "pairs", "sync.checked.total": "materialize.{path}",
+           "sync.checked.nonzero": "materialize.{path}",
+           "sync.fits": "materialize.{path}"}
+
+
+def _keys(dom: int):
+    rng = np.random.default_rng(dom)
+    return (torch.from_numpy(rng.integers(1, dom + 1, 3000).astype(np.int32)),
+            torch.from_numpy(rng.integers(1, dom + 1, 2500).astype(np.int32)))
+
+
+def _join(dom: int) -> str:
+    """One v2 join on the CPU, as the benchmark runs it; its path."""
+    bk, pk = _keys(dom)
+    ht = hash_join.build(bk)
+    state, total, nonzero = merge_join.probe_count(ht, pk)
+    total, nonzero = int(total), int(nonzero)
+    return merge_join.plan_materialize(
+        ht, state, round_up(nonzero, 1024), round_up(total, 1024),
+        total=total, nonzero=nonzero)[0]
+
+
+def _spans():
+    return [r for r in trace.records() if r["kind"] != "setup"]
+
+
+def test_off_records_nothing_and_spans_are_the_shared_no_op():
+    trace.clear()
+    assert _join(40) == "fill"
+    assert _spans() == []
+    assert trace.span("build") is trace.OFF
+    assert trace.sync("fits") is trace.OFF
+    assert trace.new_join() == -1
+    assert hash_join.build(_keys(40)[0]).trace_id == -1
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_a_join_gives_its_span_tree(path):
+    dom, syncs = PATHS[path]
+    trace.clear()
+    with torch.profiler.profile(activities=CPU) as prof:
+        assert _join(dom) == path
+    recs = _spans()
+    parents = {k.format(path=path): v and v.format(path=path)
+               for k, v in PARENTS.items()}
+    want = {"build", "build.ids", "build.sort", "count", "count.ids",
+            "count.sort", "count.merge", "count.totals", "materialize",
+            f"materialize.{path}", "compact", "offsets", "pairs", *syncs}
+    if path == "fill":
+        want.add("group_heads")
+    assert {r["name"] for r in recs} == want
+    for r in recs:
+        assert r["parent"] == parents[r["name"]], r
+        assert r["device_ms"] is None and r["host_ms"] >= 0
+    assert len({r["join"] for r in recs}) == 1 and recs[0]["join"] >= 0
+    assert [r["name"] for r in recs if r["kind"] == "sync"] == syncs
+    assert all(r["kind"] == "span" for r in recs
+               if not r["name"].startswith("sync."))
+    names = {e.name for e in prof.events()}
+    assert {trace.PREFIX + n for n in want} <= names
+
+
+def test_joins_take_new_ids_and_children_inherit_them():
+    trace.clear()
+    with torch.profiler.profile(activities=CPU):
+        a, b = (hash_join.build(_keys(40)[0]) for _ in range(2))
+        with trace.span("outer", join=b.trace_id):
+            with trace.span("inner"):
+                pass
+            with trace.span("other", join=a.trace_id):
+                pass
+    assert b.trace_id == a.trace_id + 1
+    joins = {r["name"]: r["join"] for r in _spans()}
+    assert joins["inner"] == joins["outer"] == b.trace_id
+    assert joins["other"] == a.trace_id
+
+
+def test_an_upload_of_a_tensor_on_the_device_is_no_sync():
+    trace.clear()
+    dev = torch.device("cpu")
+    with torch.profiler.profile(activities=CPU):
+        merge_join._upload(torch.tensor(5), torch.int64, dev, "t")
+        merge_join._upload(5, torch.int64, dev, "n")
+    assert [r["name"] for r in _spans()] == ["sync.n"]
+
+
+def test_the_record_deque_stays_bounded():
+    trace.clear()
+    extra = 10
+    with torch.profiler.profile(activities=CPU):
+        for i in range(trace.MAX_RECORDS + extra):
+            with trace.span("s", join=i):
+                pass
+    recs = _spans()
+    assert len(recs) == trace.MAX_RECORDS
+    assert recs[0]["join"] == extra and recs[-1]["join"] == \
+        trace.MAX_RECORDS + extra - 1
+    trace.clear()
+    assert _spans() == []
+
+
+def test_setup_records_stay_through_clear():
+    trace.clear()
+    setup = {r["name"]: r for r in trace.records() if r["kind"] == "setup"}
+    assert setup["setup.import"]["host_ms"] > 0
+    # kept once the kernel library has loaded in this process (never on
+    # the CPU path; on a card after any earlier kernel launch)
+    assert ("setup.kernels" in setup) == (_build._lib is not None)
+    if "setup.kernels" in setup:
+        assert setup["setup.kernels"]["host_ms"] > 0
+        assert setup["setup.kernels"]["device_ms"] is None
+
+
+def test_the_table_sums_by_name_and_counts_syncs():
+    trace.clear()
+    with torch.profiler.profile(activities=CPU):
+        _join(40)
+        _join(40)
+    rows = {r["name"]: r for r in trace.table(_spans())}
+    assert rows["build"]["count"] == rows["sync.fits"]["count"] == 2
+    assert rows["materialize.fill"]["syncs"] == 6
+    assert rows["group_heads"]["syncs"] == 2
+    assert rows["build"]["syncs"] == rows["count"]["syncs"] == 0
+    assert rows["count"]["device_ms"] is None
+    assert rows["count"]["host_ms"] == pytest.approx(sum(
+        r["host_ms"] for r in _spans() if r["name"] == "count"))
+
+
+def test_the_cpu_path_launches_no_kernel():
+    before = dict(trace.launches)
+    with torch.profiler.profile(activities=CPU):
+        _join(300)
+    _join(10**6)
+    assert dict(trace.launches) == before
+
+
+def test_records_resolve_once_and_read_again():
+    trace.clear()
+    with torch.profiler.profile(activities=CPU):
+        _join(40)
+    assert trace.records() == trace.records()

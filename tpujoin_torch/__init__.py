@@ -12,7 +12,13 @@ shards (``parallel/``: in one process, or one rank a card over
 ``sm_90a`` (``csrc/``), built with nvcc at first use. The entry points run on CUDA
 unless given ``device="cpu"`` or CPU tensors, which take each kernel's
 plain PyTorch version instead.
+
+The package's own imports are timed, from here, as the set-up record
+``setup.import`` of :mod:`tpujoin_torch.trace`.
 """
+import time
+
+_T0 = time.perf_counter()
 
 from tpujoin_torch.core.config import PRESETS, JoinConfig
 from tpujoin_torch.core.table import Table
@@ -27,6 +33,9 @@ from tpujoin_torch.ops.nested_loop_join import nested_loop_join
 from tpujoin_torch.ops.sort import sort_by_key
 from tpujoin_torch.ops.table_join import join_tables
 from tpujoin_torch.parallel import distributed_hash_join
+from tpujoin_torch import trace
+
+trace.setup("import", time.perf_counter() - _T0)
 
 __all__ = ["HashJoinTable", "JoinConfig", "PRESETS", "Table", "anti_join",
            "distributed_hash_join", "filter_table", "group_by_agg",

@@ -17,9 +17,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
+
+from tpujoin_torch import trace
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -141,9 +144,11 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+    """The loaded kernel library, built first if needed; its build and
+    load are kept as the set-up record ``setup.kernels``."""
     global _lib
     if _lib is None:
+        t0 = time.perf_counter()
         loaded = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(loaded, name)
@@ -156,18 +161,20 @@ def lib() -> ctypes.CDLL:
         loaded.tj_error_string.argtypes = [ctypes.c_int]
         loaded.tj_error_string.restype = ctypes.c_char_p
         _lib = loaded
+        trace.setup("kernels", time.perf_counter() - t0)
     return _lib
 
 
 def call(name: str, device: torch.device, *args) -> None:
-    """Launch entry point ``name`` on ``device``'s current stream; raise on
-    error."""
+    """Launch entry point ``name`` on ``device``'s current stream and count
+    it in ``trace.launches``; raise on error."""
     fn = getattr(lib(), name)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         msg = lib().tj_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+    trace.launches[name] += 1
 
 
 def size(name: str, *args) -> int:

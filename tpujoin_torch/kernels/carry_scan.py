@@ -16,7 +16,6 @@ import torch
 from tpujoin_torch.kernels import _build
 from tpujoin_torch.utils.shapes import cdiv
 
-LAUNCHES = 0
 TILE = 8192            # rows a block scans: SCAN_TILE in csrc/bench_mat2.cu
 
 
@@ -29,7 +28,6 @@ def carry_scan_plain(x: torch.Tensor) -> torch.Tensor:
 
 def carry_scan(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum of a 1-D int32 tensor, mod 2^32."""
-    global LAUNCHES
     if _build.on_cpu(x):
         return carry_scan_plain(x)
     _build.check_cuda_i32(x)
@@ -41,5 +39,4 @@ def carry_scan(x: torch.Tensor) -> torch.Tensor:
         scratch = torch.empty(words, dtype=torch.int64, device=x.device)
         _build.call("tj_carry_scan", x.device, x.data_ptr(), y.data_ptr(), n,
                     scratch.data_ptr(), words)
-        LAUNCHES += 1
     return y

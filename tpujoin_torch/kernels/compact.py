@@ -28,9 +28,6 @@ from tpujoin_torch.utils.shapes import cdiv
 
 BLOCK_ROWS = 1024   # rows per block of K3's and K6b's two passes
 MAX_COLS = 8        # the most columns one compact_cols launch takes
-LAUNCHES = 0        # compact3's scatter launches (each follows one count)
-IDS_LAUNCHES = 0    # compact_ids's
-COLS_LAUNCHES = 0   # compact_cols's
 
 
 def _keep(mask: torch.Tensor) -> torch.Tensor:
@@ -102,7 +99,6 @@ def compact_ids(mask: torch.Tensor, k_cap: int):
     first k_cap of them, -1 from slot nonzero on; ``nonzero`` is the
     number of set rows (0-d int64). The mask may be a view starting at
     any row."""
-    global IDS_LAUNCHES
     if _build.on_cpu(mask):
         return compact_ids_plain(mask, k_cap)
     mask_i32 = _mask_i32(mask, mask.device)
@@ -117,7 +113,6 @@ def compact_ids(mask: torch.Tensor, k_cap: int):
     _build.call("tj_compact_ids", mask.device, mask.data_ptr(), mask_i32, n,
                 scratch.data_ptr(), words, out.data_ptr(), k_cap,
                 nonzero.data_ptr())
-    IDS_LAUNCHES += 1
     return out, nonzero
 
 
@@ -149,11 +144,9 @@ def compact_cols(mask: torch.Tensor, cols, k_cap: int):
     """(outs, nonzero): every column of ``cols`` (1 to 8 int32 tensors)
     compacted to the set mask rows, in order, the first k_cap of them,
     zero-padded; ``nonzero`` as in :func:`compact_ids`."""
-    global COLS_LAUNCHES
     if _build.on_cpu(mask, *cols):
         return compact_cols_plain(mask, cols, k_cap)
     outs, nonzero = _launch_cols(mask, tuple(cols), k_cap)
-    COLS_LAUNCHES += mask.shape[0] > 0
     return outs, nonzero
 
 
@@ -161,9 +154,7 @@ def compact3(lo: torch.Tensor, cnt: torch.Tensor, sid: torch.Tensor,
              k_cap: int):
     """(lo_c, cnt_c, sid_c): the rows with cnt > 0 in input order, the
     first k_cap of them, zero-padded to k_cap."""
-    global LAUNCHES
     if _build.on_cpu(lo, cnt, sid):
         return compact3_plain(lo, cnt, sid, k_cap)
     outs, _ = _launch_cols(cnt, (lo, cnt, sid), k_cap)
-    LAUNCHES += cnt.shape[0] > 0
     return outs

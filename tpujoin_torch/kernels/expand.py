@@ -21,7 +21,6 @@ import torch
 from tpujoin_torch.kernels import _build
 from tpujoin_torch.kernels.expand_fill import partition_scratch
 
-LAUNCHES = 0
 
 
 def expand_plain(offsets: torch.Tensor, lo: torch.Tensor, sid: torch.Tensor,
@@ -39,7 +38,6 @@ def expand(offsets: torch.Tensor, lo: torch.Tensor, sid: torch.Tensor,
     cumsum of the compacted counts: strictly increasing below its last
     value, which only a zero tail repeats. ``lo`` holds the rows' build
     lower bounds, ``sid`` their probe ids."""
-    global LAUNCHES
     k = offsets.shape[0]
     if k == 0 or lo.shape[0] != k or sid.shape[0] != k:
         raise ValueError("expand: need K >= 1 rows of offsets, lo and sid")
@@ -55,5 +53,4 @@ def expand(offsets: torch.Tensor, lo: torch.Tensor, sid: torch.Tensor,
         _build.call("tj_expand", bpos.device, offsets.data_ptr(),
                     lo.data_ptr(), sid.data_ptr(), k, bpos.data_ptr(),
                     sid_out.data_ptr(), capacity, parts.data_ptr(), rows)
-        LAUNCHES += 1
     return bpos, sid_out

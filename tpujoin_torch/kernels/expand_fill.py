@@ -24,7 +24,6 @@ import torch
 
 from tpujoin_torch.kernels import _build
 
-LAUNCHES = 0
 PLAIN_CHUNK = 1 << 26   # slots per step of the plain versions
 TILE = 2048             # slots of one K5 window (TILE in the .cu)
 
@@ -96,27 +95,26 @@ def launch(name: str, roff, rsid, goff, glo, gnb, src, nruns, ngroups,
            total, capacity):
     """The checks and the launches of K5 (partition pass, fill kernel),
     shared by :func:`expand_fill` and ``expand_groups.expand_groups``.
-    Returns (r_vals, s_ids, launched): ``launched`` is False on the CPU
-    path and for capacity 0."""
+    Returns (r_vals, s_ids)."""
     nruns, ngroups, total = int(nruns), int(ngroups), int(total)
     check_sizes(name, ((nruns, roff.shape[0]), (nruns, rsid.shape[0]),
                        (ngroups, goff.shape[0]), (ngroups, glo.shape[0]),
                        (ngroups, gnb.shape[0])), total, capacity)
     if _build.on_cpu(roff, rsid, goff, glo, gnb, src):
-        return (*expand_fill_plain(roff, rsid, goff, glo, gnb, src, nruns,
-                                   ngroups, total, capacity), False)
+        return expand_fill_plain(roff, rsid, goff, glo, gnb, src, nruns,
+                                 ngroups, total, capacity)
     r_vals = torch.empty(capacity, dtype=torch.int32, device=roff.device)
     s_ids = torch.empty_like(r_vals)
     _build.check_cuda_i32(roff, rsid, goff, glo, gnb, src, r_vals, s_ids)
     if capacity == 0:
-        return r_vals, s_ids, False
+        return r_vals, s_ids
     parts, rows = partition_scratch(total, capacity, r_vals.device)
     _build.call("tj_expand_fill", r_vals.device, roff.data_ptr(),
                 rsid.data_ptr(), nruns, goff.data_ptr(), glo.data_ptr(),
                 gnb.data_ptr(), ngroups, src.data_ptr(), src.shape[0], total,
                 r_vals.data_ptr(), s_ids.data_ptr(), capacity,
                 parts.data_ptr(), rows)
-    return r_vals, s_ids, True
+    return r_vals, s_ids
 
 
 def expand_fill(roff: torch.Tensor, rsid: torch.Tensor, goff: torch.Tensor,
@@ -125,9 +123,5 @@ def expand_fill(roff: torch.Tensor, rsid: torch.Tensor, goff: torch.Tensor,
     """(r_vals, s_ids), each [capacity] int32. The first ``nruns`` rows of
     ``roff`` are strictly increasing, as are the first ``ngroups`` of
     ``goff``; only those rows are read."""
-    global LAUNCHES
-    r_vals, s_ids, launched = launch("expand_fill", roff, rsid, goff, glo,
-                                     gnb, src, nruns, ngroups, total,
-                                     capacity)
-    LAUNCHES += launched
-    return r_vals, s_ids
+    return launch("expand_fill", roff, rsid, goff, glo, gnb, src, nruns,
+                  ngroups, total, capacity)

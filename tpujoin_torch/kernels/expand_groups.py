@@ -14,7 +14,6 @@ import torch
 
 from tpujoin_torch.kernels import expand_fill as _fill
 
-LAUNCHES = 0
 
 
 def expand_groups_plain(roff, rsid, goff, glo, gnb, src, nruns: int,
@@ -30,9 +29,5 @@ def expand_groups(roff: torch.Tensor, rsid: torch.Tensor, goff: torch.Tensor,
     """(r_vals, s_ids), each [capacity] int32: slot t in run r and group g
     holds (src[glo[g] + (t - goff[g]) mod gnb[g]], rsid[r]), -1 from the
     total on."""
-    global LAUNCHES
-    r_vals, s_ids, launched = _fill.launch("expand_groups", roff, rsid, goff,
-                                           glo, gnb, src, nruns, ngroups,
-                                           total, capacity)
-    LAUNCHES += launched
-    return r_vals, s_ids
+    return _fill.launch("expand_groups", roff, rsid, goff, glo, gnb, src,
+                        nruns, ngroups, total, capacity)

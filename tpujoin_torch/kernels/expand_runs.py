@@ -21,7 +21,6 @@ from tpujoin_torch.kernels import _build
 from tpujoin_torch.kernels.expand_fill import (check_sizes, partition_scratch,
                                                slot_chunks, take_or_neg)
 
-LAUNCHES = 0
 
 
 def expand_runs_plain(offsets, lo, sid, src, nonzero: int, total: int,
@@ -45,7 +44,6 @@ def expand_runs(offsets: torch.Tensor, lo: torch.Tensor, sid: torch.Tensor,
     """(r_vals, s_ids), each [capacity] int32. The first ``nonzero`` rows
     of ``offsets`` (the exclusive cumsum of the run lengths) are strictly
     increasing; only those rows are read."""
-    global LAUNCHES
     nonzero, total = int(nonzero), int(total)
     check_sizes("expand_runs", ((nonzero, offsets.shape[0]),
                                 (nonzero, lo.shape[0]),
@@ -62,5 +60,4 @@ def expand_runs(offsets: torch.Tensor, lo: torch.Tensor, sid: torch.Tensor,
                     lo.data_ptr(), sid.data_ptr(), nonzero, src.data_ptr(),
                     src.shape[0], total, r_vals.data_ptr(), s_ids.data_ptr(),
                     capacity, parts.data_ptr(), rows)
-        LAUNCHES += 1
     return r_vals, s_ids

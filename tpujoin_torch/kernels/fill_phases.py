@@ -35,7 +35,6 @@ from tpujoin_torch.kernels.expand_fill import (PLAIN_CHUNK, check_sizes,
                                                partition_scratch)
 from tpujoin_torch.utils.shapes import round_up
 
-LAUNCHES = 0
 SLOTS = 1024                # slots a block of K5 takes at a time
 # variant name -> the kernel's phases (0 all, 1 no run walk, 2 no group
 # walk nor gather, 3 no gather)
@@ -81,7 +80,6 @@ def expand_fill_v(roff: torch.Tensor, rsid: torch.Tensor, goff: torch.Tensor,
     """(r, s), each [round_up(capacity, step)] int32, of ``variant``; the
     inputs as :func:`~tpujoin_torch.kernels.expand_fill.expand_fill`
     takes them."""
-    global LAUNCHES
     phases = _phases(variant, step)
     nruns, ngroups, total = int(nruns), int(ngroups), int(total)
     cap = round_up(capacity, step)
@@ -103,5 +101,4 @@ def expand_fill_v(roff: torch.Tensor, rsid: torch.Tensor, goff: torch.Tensor,
                     gnb.data_ptr(), ngroups, src.data_ptr(), src.shape[0],
                     total, r_out.data_ptr(), s_out.data_ptr(), cap, step,
                     phases, parts.data_ptr(), rows)
-        LAUNCHES += 1
     return r_out, s_out

@@ -19,7 +19,6 @@ import torch
 
 from tpujoin_torch.kernels import _build
 
-LAUNCHES = 0
 TILE = 1024                  # FR_TILE in csrc/probe_flatroll.cu
 STEP = 8 * TILE              # the TPU kernel's grid step (BATCH tiles)
 MAX_SHIFTS = 8192            # FR_MAX_SHIFTS in csrc/probe_flatroll.cu
@@ -57,7 +56,6 @@ def flat_roll(x: torch.Tensor, shifts: torch.Tensor,
               rolls: int) -> torch.Tensor:
     """The sum of ``rolls`` flat rolls of each TILE-element tile of the
     1-D int32 column ``x``, by the first ``rolls`` of ``shifts``."""
-    global LAUNCHES
     _check(x, shifts, rolls)
     if _build.on_cpu(x, shifts):
         return flat_roll_plain(x, shifts, rolls)
@@ -66,5 +64,4 @@ def flat_roll(x: torch.Tensor, shifts: torch.Tensor,
     if x.shape[0]:
         _build.call("tj_flat_roll", x.device, x.data_ptr(), out.data_ptr(),
                     x.shape[0], shifts.data_ptr(), rolls)
-        LAUNCHES += 1
     return out

@@ -19,7 +19,6 @@ import torch
 
 from tpujoin_torch.kernels import _build
 
-LAUNCHES = 0
 LANES = 128
 SUB = 8192                  # slots a pass of the kernel: step's multiple
 PLAIN_CHUNK = 1 << 26       # slots a step of the plain version
@@ -73,7 +72,6 @@ def fill_forward_plain(mark2d: torch.Tensor, step: int) -> torch.Tensor:
 def fill_forward(mark2d: torch.Tensor, step: int) -> torch.Tensor:
     """The forward-filled column, (rows, 128) int32 like ``mark2d``;
     ``step`` is a multiple of SUB dividing its slots."""
-    global LAUNCHES
     n = _check(mark2d, step)
     if _build.on_cpu(mark2d):
         return fill_forward_plain(mark2d, step)
@@ -87,5 +85,4 @@ def fill_forward(mark2d: torch.Tensor, step: int) -> torch.Tensor:
         scratch = torch.empty(words, dtype=torch.int64, device=flat.device)
         _build.call("tj_fill_forward", flat.device, flat.data_ptr(),
                     flat_out.data_ptr(), n, step, scratch.data_ptr(), words)
-        LAUNCHES += 1
     return out

@@ -15,7 +15,6 @@ import torch
 
 from tpujoin_torch.kernels import _build
 
-LAUNCHES = 0
 TILE = 4096             # path elements of one tile (TILE in the .cu)
 
 
@@ -32,7 +31,6 @@ def merge_count_plain(sorted_build_keys: torch.Tensor,
 def merge_count(sorted_build_keys: torch.Tensor,
                 sorted_probe_keys: torch.Tensor):
     """(lo, cnt) for every probe key. Both inputs must be ascending."""
-    global LAUNCHES
     b, p = sorted_build_keys, sorted_probe_keys
     if _build.on_cpu(b, p):
         return merge_count_plain(b, p)
@@ -47,5 +45,4 @@ def merge_count(sorted_build_keys: torch.Tensor,
         _build.call("tj_merge_count", p.device, b.data_ptr(), n,
                     p.data_ptr(), m, lo.data_ptr(), cnt.data_ptr(),
                     parts.data_ptr(), rows)
-        LAUNCHES += 1
     return lo, cnt

@@ -32,8 +32,6 @@ from tpujoin_torch.utils.shapes import cdiv
 TILE = 7680             # pairs a sort_pass block ranks (PASS_TILE in the .cu)
 RADIX = 256             # bins of an 8-bit digit
 SHIFTS = (0, 8, 16, 24)  # the digits of a 32-bit key, least significant first
-HIST_LAUNCHES = 0       # histogram kernel launches
-PASS_LAUNCHES = 0       # digit-pass kernel launches
 
 
 def _digit(keys: torch.Tensor, shift: int) -> torch.Tensor:
@@ -57,7 +55,6 @@ def sort_histogram_plain(keys: torch.Tensor) -> torch.Tensor:
 def sort_histogram(keys: torch.Tensor) -> torch.Tensor:
     """The (4, 256) int32 histograms of the keys' 8-bit digits, least
     significant first, sign bit flipped."""
-    global HIST_LAUNCHES
     if _build.on_cpu(keys):
         return sort_histogram_plain(keys)
     _build.check_cuda_i32(keys)
@@ -67,7 +64,6 @@ def sort_histogram(keys: torch.Tensor) -> torch.Tensor:
     if n:
         _build.call("tj_sort_histogram", keys.device, keys.data_ptr(), n,
                     hist.data_ptr())
-        HIST_LAUNCHES += 1
     return hist
 
 
@@ -85,7 +81,6 @@ def sort_pass(keys: torch.Tensor, ids: torch.Tensor, shift: int,
     """One stable pass of (keys, ids) on the 8-bit digit at ``shift`` (0,
     8, 16 or 24). ``hist`` is :func:`sort_histogram` of the keys, in any
     order of them; the kernel takes the digit's output offsets from it."""
-    global PASS_LAUNCHES
     _check_shift(shift)
     _build.check_shapes("sort_pass", (hist, (len(SHIFTS), RADIX)))
     if _build.on_cpu(keys, ids):
@@ -106,7 +101,6 @@ def sort_pass(keys: torch.Tensor, ids: torch.Tensor, shift: int,
         _build.call("tj_sort_pass", keys.device, keys.data_ptr(),
                     ids.data_ptr(), ko.data_ptr(), io.data_ptr(), n, shift,
                     hist.data_ptr(), scratch.data_ptr(), words)
-        PASS_LAUNCHES += 1
     return ko, io
 
 

@@ -17,12 +17,6 @@ import torch
 from tpujoin_torch.kernels import _build
 from tpujoin_torch.kernels.runs_phases import wrap_i32
 
-ROLL_LAUNCHES = 0
-SMEM_DYN_LAUNCHES = 0
-VMEM_DYN_LAUNCHES = 0
-FORI_LAUNCHES = 0
-SMEM_BLOCK_LAUNCHES = 0
-
 ROW = 1024          # PM_ROW: x's (1, ROW) row of roll and vmem_dyn
 LANES = 128         # PM_LANES: the (1, LANES) outputs
 S_WORDS = 5         # PM_S: smem_dyn's s
@@ -55,13 +49,10 @@ def roll_plain(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 def roll(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """out[0, i] = x[0, (i + s[0]) mod 1024]: the (1, 1024) row rolled by
     -s[0], for every i32 s[0]."""
-    global ROLL_LAUNCHES
     _build.check_shapes("roll", (x, (1, ROW)), (s, (1,)))
     if _build.on_cpu(x, s):
         return roll_plain(x, s)
-    out = _build.launch("tj_mosaic_roll", (1, ROW), x, s)
-    ROLL_LAUNCHES += 1
-    return out
+    return _build.launch("tj_mosaic_roll", (1, ROW), x, s)
 
 
 def smem_dyn_plain(s: torch.Tensor) -> torch.Tensor:
@@ -72,13 +63,10 @@ def smem_dyn_plain(s: torch.Tensor) -> torch.Tensor:
 def smem_dyn(s: torch.Tensor) -> torch.Tensor:
     """s[s[0]] of the 5-word s broadcast to (1, 128); 0 where s[0] lies
     outside [0, 5)."""
-    global SMEM_DYN_LAUNCHES
     _build.check_shapes("smem_dyn", (s, (S_WORDS,)))
     if _build.on_cpu(s):
         return smem_dyn_plain(s)
-    out = _build.launch("tj_mosaic_smem_dyn", (1, LANES), s)
-    SMEM_DYN_LAUNCHES += 1
-    return out
+    return _build.launch("tj_mosaic_smem_dyn", (1, LANES), s)
 
 
 def vmem_dyn_plain(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -89,13 +77,10 @@ def vmem_dyn_plain(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 def vmem_dyn(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """x[0, s[0]] of the (1, 1024) x broadcast to (1, 128); 0 where s[0]
     lies outside [0, 1024)."""
-    global VMEM_DYN_LAUNCHES
     _build.check_shapes("vmem_dyn", (x, (1, ROW)), (s, (1,)))
     if _build.on_cpu(x, s):
         return vmem_dyn_plain(x, s)
-    out = _build.launch("tj_mosaic_vmem_dyn", (1, LANES), x, s)
-    VMEM_DYN_LAUNCHES += 1
-    return out
+    return _build.launch("tj_mosaic_vmem_dyn", (1, LANES), x, s)
 
 
 def fori_plain(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -110,13 +95,10 @@ def fori(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """sum over d < s[0] of (x + d) on the (1, 128) x, adds wrapping: a
     loop whose bound is read at run time (s[0] <= 0 runs none). The kernel
     runs s[0] dependent adds: ~2^31 of them take seconds."""
-    global FORI_LAUNCHES
     _build.check_shapes("fori", (x, (1, LANES)), (s, (1,)))
     if _build.on_cpu(x, s):
         return fori_plain(x, s)
-    out = _build.launch("tj_mosaic_fori", (1, LANES), x, s)
-    FORI_LAUNCHES += 1
-    return out
+    return _build.launch("tj_mosaic_fori", (1, LANES), x, s)
 
 
 def smem_block_plain(meta: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -127,10 +109,7 @@ def smem_block_plain(meta: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 def smem_block(meta: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Element 0 of block r[0] of 1024 of the 4096-word meta, broadcast to
     (1, 128); 0 where r[0] lies outside [0, 4)."""
-    global SMEM_BLOCK_LAUNCHES
     _build.check_shapes("smem_block", (meta, (META,)), (r, (1,)))
     if _build.on_cpu(meta, r):
         return smem_block_plain(meta, r)
-    out = _build.launch("tj_mosaic_smem_block", (1, LANES), meta, r)
-    SMEM_BLOCK_LAUNCHES += 1
-    return out
+    return _build.launch("tj_mosaic_smem_block", (1, LANES), meta, r)

@@ -21,9 +21,6 @@ import torch
 from tpujoin_torch.kernels import _build
 from tpujoin_torch.kernels.mosaic import LANES, broadcast_row, read_or_zero
 
-HBM_TO_SMEM_LAUNCHES = 0
-DYN_VEC_LOAD_LAUNCHES = 0
-
 HS_N = 8192         # x of hbm_to_smem
 WINDOW = 2048       # HS_WINDOW: the copied window
 DV_N = 4096         # x of dyn_vec_load
@@ -48,14 +45,11 @@ def hbm_to_smem(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     For every other pair it is x[s[0] + s[1]] where s[1] lies in [0, 2048)
     and s[0] + s[1] in x, else 0: the kernel clamps the copy to x and
     rounds its ends out to 16 bytes. x's data must be 16-byte aligned."""
-    global HBM_TO_SMEM_LAUNCHES
     _build.check_shapes("hbm_to_smem", (x, (HS_N,)), (s, (2,)))
     if _build.on_cpu(x, s):
         return hbm_to_smem_plain(x, s)
     _build.check_aligned(x)
-    out = _build.launch("tj_mosaic_hbm_to_smem", (1, LANES), x, s)
-    HBM_TO_SMEM_LAUNCHES += 1
-    return out
+    return _build.launch("tj_mosaic_hbm_to_smem", (1, LANES), x, s)
 
 
 def dyn_vec_load_plain(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -70,10 +64,7 @@ def dyn_vec_load(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
     Precondition for the TPU kernel's result: s[0] in [0, 3072]. Words
     outside x read 0, for every i32 s[0]."""
-    global DYN_VEC_LOAD_LAUNCHES
     _build.check_shapes("dyn_vec_load", (x, (1, DV_N)), (s, (1,)))
     if _build.on_cpu(x, s):
         return dyn_vec_load_plain(x, s)
-    out = _build.launch("tj_mosaic_dyn_vec_load", (1, DV_OUT), x, s)
-    DYN_VEC_LOAD_LAUNCHES += 1
-    return out
+    return _build.launch("tj_mosaic_dyn_vec_load", (1, DV_OUT), x, s)

@@ -20,10 +20,6 @@ import torch
 
 from tpujoin_torch.kernels import _build
 
-SUBLANE_ROLL_LAUNCHES = 0
-ROW_DMA_2D_LAUNCHES = 0
-FLAT_ROTATE_LAUNCHES = 0
-
 LANES = 128         # TL_LANES: a row of every tile
 SR_ROWS = 32        # sublane_roll's tile
 RD_X_ROWS = 256     # row_dma_2d's x
@@ -41,13 +37,10 @@ def sublane_roll_plain(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 def sublane_roll(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """out[r] = x[(r + s[0]) mod 32] of the (32, 128) x: its rows rolled
     by -s[0], for every i32 s[0]."""
-    global SUBLANE_ROLL_LAUNCHES
     _build.check_shapes("sublane_roll", (x, (SR_ROWS, LANES)), (s, (1,)))
     if _build.on_cpu(x, s):
         return sublane_roll_plain(x, s)
-    out = _build.launch("tj_mosaic_sublane_roll", (SR_ROWS, LANES), x, s)
-    SUBLANE_ROLL_LAUNCHES += 1
-    return out
+    return _build.launch("tj_mosaic_sublane_roll", (SR_ROWS, LANES), x, s)
 
 
 def row_dma_2d_plain(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -63,14 +56,11 @@ def row_dma_2d(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     Precondition for the TPU kernel's result: s[0] in [0, 224] (a multiple
     of 8 there). Rows outside x are 0, for every i32 s[0]. x's data must be
     16-byte aligned."""
-    global ROW_DMA_2D_LAUNCHES
     _build.check_shapes("row_dma_2d", (x, (RD_X_ROWS, LANES)), (s, (1,)))
     if _build.on_cpu(x, s):
         return row_dma_2d_plain(x, s)
     _build.check_aligned(x)
-    out = _build.launch("tj_mosaic_row_dma_2d", (RD_ROWS, LANES), x, s)
-    ROW_DMA_2D_LAUNCHES += 1
-    return out
+    return _build.launch("tj_mosaic_row_dma_2d", (RD_ROWS, LANES), x, s)
 
 
 def flat_rotate_plain(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -88,10 +78,7 @@ def flat_rotate(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     The TPU kernel builds it from two row rolls by s[0] // 128 (a floor),
     a lane roll by rem(s[0], 128) (a truncation) and a select; it agrees
     with this for s[0] >= 0 and for multiples of 128 only."""
-    global FLAT_ROTATE_LAUNCHES
     _build.check_shapes("flat_rotate", (x, (FR_ROWS, LANES)), (s, (1,)))
     if _build.on_cpu(x, s):
         return flat_rotate_plain(x, s)
-    out = _build.launch("tj_mosaic_flat_rotate", (FR_OUT_ROWS, LANES), x, s)
-    FLAT_ROTATE_LAUNCHES += 1
-    return out
+    return _build.launch("tj_mosaic_flat_rotate", (FR_OUT_ROWS, LANES), x, s)

@@ -29,7 +29,6 @@ import torch
 
 from tpujoin_torch.kernels import _build
 
-LAUNCHES = 0
 LANES = 128
 KINDS = ("roll_lane", "roll_sub", "roll_static", "concat_shift", "select",
          "iota_add")            # the order of Kind in csrc/roll_cost.cu
@@ -80,7 +79,6 @@ def op_chain(x: torch.Tensor, sh: int, kind: str, ops: int = OPS,
              steps: int = STEPS) -> torch.Tensor:
     """``kind`` applied ``ops`` times to the (R, 128) int32 tile ``x``,
     the chain run ``steps`` times on the card."""
-    global LAUNCHES
     _check(x, sh, kind, ops, steps)
     if _build.on_cpu(x):
         return op_chain_plain(x, sh, kind, ops, steps)
@@ -90,5 +88,4 @@ def op_chain(x: torch.Tensor, sh: int, kind: str, ops: int = OPS,
     _build.check_cuda_i32(x.view(-1), out.view(-1))
     _build.call("tj_op_chain", x.device, x.data_ptr(), out.data_ptr(),
                 x.shape[0], KINDS.index(kind), sh, ops, steps)
-    LAUNCHES += 1
     return out

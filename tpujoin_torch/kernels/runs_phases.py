@@ -32,7 +32,6 @@ import torch
 from tpujoin_torch.kernels import _build
 from tpujoin_torch.utils.shapes import cdiv
 
-LAUNCHES = 0
 TILE = 1024
 BATCH = 8
 STEP = TILE * BATCH
@@ -132,7 +131,6 @@ def run_variant(off: torch.Tensor, lo: torch.Tensor, sid: torch.Tensor,
                 capacity: int, variant: str):
     """(r, s), each [round_up(capacity, STEP)] int32, of ``variant``. The
     bases must keep every read inside its column (:func:`check_bases`)."""
-    global LAUNCHES
     code = _variant(variant)
     nonzero, total = int(nonzero), int(total)
     steps = cdiv(capacity, STEP)
@@ -156,5 +154,4 @@ def run_variant(off: torch.Tensor, lo: torch.Tensor, sid: torch.Tensor,
                     lo.data_ptr(), sid.data_ptr(), src.data_ptr(),
                     meta_base.data_ptr(), src_base.data_ptr(), steps,
                     nonzero, total, code, r_out.data_ptr(), s_out.data_ptr())
-        LAUNCHES += 1
     return r_out, s_out

@@ -16,7 +16,6 @@ import torch
 
 from tpujoin_torch.kernels import _build
 
-LAUNCHES = 0
 LANES = 128
 MAX_SHIFTS = 8192            # SC_MAX_SHIFTS in csrc/probe_opcost.cu
 
@@ -54,7 +53,6 @@ def select_chain(x: torch.Tensor, shifts: torch.Tensor, ops: int,
                  rows: int) -> torch.Tensor:
     """The chain over each ``rows`` * 128-element block of the 1-D int32
     column ``x``, with the first ``ops`` of ``shifts``."""
-    global LAUNCHES
     _check(x, shifts, ops, rows)
     if _build.on_cpu(x, shifts):
         return select_chain_plain(x, shifts, ops, rows)
@@ -65,5 +63,4 @@ def select_chain(x: torch.Tensor, shifts: torch.Tensor, ops: int,
     if x.shape[0]:
         _build.call("tj_select_chain", x.device, x.data_ptr(),
                     out.data_ptr(), x.shape[0], shifts.data_ptr(), ops, rows)
-        LAUNCHES += 1
     return out

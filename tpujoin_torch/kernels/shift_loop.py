@@ -15,7 +15,6 @@ import torch
 
 from tpujoin_torch.kernels import _build
 
-LAUNCHES = 0
 TILE = 1024            # SHIFT_TILE in csrc/bench_mat2.cu
 
 
@@ -40,7 +39,6 @@ def shift_loop_plain(x: torch.Tensor, rolls: int) -> torch.Tensor:
 def shift_loop(x: torch.Tensor, rolls: int) -> torch.Tensor:
     """The shift-select loop over each TILE-row tile of a 1-D int32
     tensor, ``rolls`` times."""
-    global LAUNCHES
     _check(x, rolls)
     if _build.on_cpu(x):
         return shift_loop_plain(x, rolls)
@@ -49,5 +47,4 @@ def shift_loop(x: torch.Tensor, rolls: int) -> torch.Tensor:
     if x.shape[0]:
         _build.call("tj_shift_loop", x.device, x.data_ptr(), out.data_ptr(),
                     x.shape[0], rolls)
-        LAUNCHES += 1
     return out

@@ -17,7 +17,7 @@ for a whole tile above every build key when n is a multiple of 1024, this
 returns the lower bound n. A CUDA tensor goes through the kernel, a CPU
 tensor through :func:`merge_count_v_plain`; anything else raises, as does
 an unknown strategy. A call is two launches, a window pass and the count,
-and counts one in ``LAUNCHES``.
+and counts one in ``trace.launches["tj_slab_count"]``.
 """
 from __future__ import annotations
 
@@ -27,7 +27,6 @@ import torch
 
 from tpujoin_torch.kernels import _build
 
-LAUNCHES = 0
 TILE = 1024                # probe keys a block takes: the JAX program's
 WARP_PIECE = 128           # the diagN / quadN probe piece
 CHUNK = 1024               # build keys a block stages at a time
@@ -65,7 +64,6 @@ def merge_count_v(sorted_build_keys: torch.Tensor,
                   sorted_probe_keys: torch.Tensor, strategy: str):
     """(lo, cnt) for every probe key by ``strategy``, TILE probe keys a
     block. Both inputs must be ascending and below INT32_MAX."""
-    global LAUNCHES
     piece, slab, skip = parse_strategy(strategy)
     b, p = sorted_build_keys, sorted_probe_keys
     if _build.on_cpu(b, p):
@@ -81,5 +79,4 @@ def merge_count_v(sorted_build_keys: torch.Tensor,
                     p.data_ptr(), p.shape[0], int(piece < TILE), slab,
                     int(skip), window.data_ptr(), tiles, lo.data_ptr(),
                     cnt.data_ptr())
-        LAUNCHES += 1
     return lo, cnt

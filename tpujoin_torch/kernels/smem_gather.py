@@ -17,7 +17,6 @@ import torch
 
 from tpujoin_torch.kernels import _build
 
-LAUNCHES = 0
 
 
 def max_table_entries(device: torch.device) -> int:
@@ -35,7 +34,6 @@ def smem_gather_plain(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def smem_gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``tbl[idx]`` for 1-D int32 ``tbl`` and ``idx``, the table staged in
     each block's shared memory."""
-    global LAUNCHES
     if _build.on_cpu(tbl, idx):
         return smem_gather_plain(tbl, idx)
     _build.check_cuda_i32(tbl, idx)
@@ -49,5 +47,4 @@ def smem_gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         _build.call("tj_smem_gather", tbl.device, tbl.data_ptr(),
                     tbl.shape[0], idx.data_ptr(), out.data_ptr(),
                     idx.shape[0])
-        LAUNCHES += 1
     return out

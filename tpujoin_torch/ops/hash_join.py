@@ -30,6 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpujoin_torch import trace
 from tpujoin_torch.kernels.forward_fill import LANES, fill_forward
 from tpujoin_torch.kernels.merge_sort import sort_pairs
 from tpujoin_torch.utils.device import i32_columns
@@ -41,10 +42,12 @@ MAX_CAPACITY = (1 << 31) - 1   # slots of one materialize (i32 slot ids)
 
 @dataclasses.dataclass
 class HashJoinTable:
-    """The built side: keys sorted ascending and the row ids under the sort."""
+    """The built side: keys sorted ascending and the row ids under the
+    sort, and the join id its spans record under (-1 untraced)."""
 
     sorted_keys: torch.Tensor   # [n] i32, ascending
     sorted_ids: torch.Tensor    # [n] i32
+    trace_id: int = -1
 
     @property
     def num_rows(self) -> int:
@@ -64,11 +67,16 @@ def _i32_tensor(a, device) -> torch.Tensor:
 
 
 def build(build_keys: torch.Tensor) -> HashJoinTable:
-    """Build phase: one (key, row id) sort."""
-    n = build_keys.shape[0]
-    ids = torch.arange(n, dtype=torch.int32, device=build_keys.device)
-    sk, sid = sort_pairs(build_keys, ids)
-    return HashJoinTable(sk, sid)
+    """Build phase: one (key, row id) sort; spans ``build``, ``build.ids``
+    and ``build.sort`` under a new join id."""
+    bk, join = build_keys, trace.new_join()
+    with trace.span("build", bk, join):
+        with trace.span("build.ids", bk):
+            ids = torch.arange(bk.shape[0], dtype=torch.int32,
+                               device=bk.device)
+        with trace.span("build.sort", bk):
+            sk, sid = sort_pairs(bk, ids)
+    return HashJoinTable(sk, sid, join)
 
 
 def probe_count(ht: HashJoinTable, probe_keys: torch.Tensor):

@@ -14,6 +14,17 @@ tpujoin/ops/merge_join.py).
 Results come out in sorted-probe order; the join result is an unordered
 multiset, checked as one by the oracle, so nothing is unsorted.
 
+Spans (tpujoin_torch/trace.py), in the table's join: ``count`` holds
+``count.ids``, ``count.sort`` (K1), ``count.merge`` (K2) and
+``count.totals``, each with device time; ``materialize`` holds one
+``materialize.<path>`` a path tried, which holds ``compact`` (K3 or the
+identity), ``offsets`` (the cumsum), ``group_heads`` (fill and groups) and
+``pairs`` (K4 and the gather, K5 or K7), on the host clock alone: the host
+paces the materialize, so timing events there would add to the device's
+idle time. Every host sync on these paths is a ``sync.<site>`` span: the
+group heads' ``torch.nonzero``, ``bool(fits)`` and each blocking upload of
+a host number.
+
 The semi, anti and left-outer joins run on the same count state: the
 matched flag scattered into probe-id order, compacted by K6a
 (``compact_ids``) on itself and on its complement, gives the matched and
@@ -26,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpujoin_torch import trace
 from tpujoin_torch.kernels.compact import compact3, compact_ids
 from tpujoin_torch.kernels.expand import expand
 from tpujoin_torch.kernels.expand_fill import expand_fill
@@ -69,12 +81,18 @@ def probe_count(ht: HashJoinTable, probe_keys: torch.Tensor):
     """Count phase. Returns (state, total, nonzero) with ``total`` the exact
     result size (0-d int64 tensor) and ``nonzero`` the number of probe rows
     with at least one match (0-d int64 tensor)."""
-    m = probe_keys.shape[0]
-    ids = torch.arange(m, dtype=torch.int32, device=probe_keys.device)
-    psk, pid = sort_pairs(probe_keys, ids)
-    lo, cnt = merge_count(ht.sorted_keys, psk)
-    total = cnt.sum(dtype=torch.int64)
-    nonzero = (cnt > 0).sum()
+    pk = probe_keys
+    with trace.span("count", pk, ht.trace_id):
+        with trace.span("count.ids", pk):
+            ids = torch.arange(pk.shape[0], dtype=torch.int32,
+                               device=pk.device)
+        with trace.span("count.sort", pk):
+            psk, pid = sort_pairs(pk, ids)
+        with trace.span("count.merge", pk):
+            lo, cnt = merge_count(ht.sorted_keys, psk)
+        with trace.span("count.totals", pk):
+            total = cnt.sum(dtype=torch.int64)
+            nonzero = (cnt > 0).sum()
     return SortedProbe(pid, lo, cnt), total, nonzero
 
 
@@ -92,13 +110,15 @@ def _compact(state: SortedProbe, k_cap: int, all_matched: bool = False):
     ``all_matched`` asserts nonzero == m (every probe row has a match, as on
     a fully covered key domain): compaction is then the identity and K3
     does not run."""
-    if all_matched:
-        lo_c, cnt_c, sid_c = (_fit(c, k_cap) for c in
-                              (state.lo, state.counts, state.probe_ids))
-    else:
-        lo_c, cnt_c, sid_c = compact3(state.lo, state.counts,
-                                      state.probe_ids, k_cap)
-    offs_c = torch.cumsum(cnt_c, 0, dtype=torch.int32) - cnt_c
+    with trace.span("compact"):
+        if all_matched:
+            lo_c, cnt_c, sid_c = (_fit(c, k_cap) for c in
+                                  (state.lo, state.counts, state.probe_ids))
+        else:
+            lo_c, cnt_c, sid_c = compact3(state.lo, state.counts,
+                                          state.probe_ids, k_cap)
+    with trace.span("offsets"):
+        offs_c = torch.cumsum(cnt_c, 0, dtype=torch.int32) - cnt_c
     return lo_c, cnt_c, sid_c, offs_c
 
 
@@ -110,16 +130,29 @@ def _group_heads(lo_c, cnt_c, offs_c, k_cap: int, nonzero: int):
     build lengths in row order at width k_cap, goff_h INT32_MAX and
     glo_h, gnb_h 0 past the ``ngroups`` heads (an int)."""
     dev = lo_c.device
-    row = torch.arange(k_cap, device=dev)
-    prev_lo = torch.cat([lo_c[:1] - 1, lo_c[:-1]])
-    heads = torch.nonzero((row < nonzero) & (lo_c != prev_lo)).squeeze(1)
-    ngroups = heads.shape[0]
-    goff_h = torch.full((k_cap,), INT32_MAX, dtype=torch.int32, device=dev)
-    glo_h = torch.zeros(k_cap, dtype=torch.int32, device=dev)
-    gnb_h = torch.zeros_like(glo_h)
-    for out, col in ((goff_h, offs_c), (glo_h, lo_c), (gnb_h, cnt_c)):
-        out[:ngroups] = col[heads]
+    with trace.span("group_heads"):
+        row = torch.arange(k_cap, device=dev)
+        prev_lo = torch.cat([lo_c[:1] - 1, lo_c[:-1]])
+        is_head = (row < nonzero) & (lo_c != prev_lo)
+        with trace.sync("group_heads"):
+            heads = torch.nonzero(is_head).squeeze(1)
+        ngroups = heads.shape[0]
+        goff_h = torch.full((k_cap,), INT32_MAX, dtype=torch.int32,
+                            device=dev)
+        glo_h = torch.zeros(k_cap, dtype=torch.int32, device=dev)
+        gnb_h = torch.zeros_like(glo_h)
+        for out, col in ((goff_h, offs_c), (glo_h, lo_c), (gnb_h, cnt_c)):
+            out[:ngroups] = col[heads]
     return goff_h, glo_h, gnb_h, ngroups
+
+
+def _upload(x, dtype: torch.dtype, dev: torch.device, site: str):
+    """``torch.as_tensor(x, dtype, dev)``: a blocking copy, and so a host
+    sync (span ``sync.<site>``), unless x is a tensor on ``dev``."""
+    if isinstance(x, torch.Tensor) and x.device == dev:
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+    with trace.sync(site):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
 
 
 def _checked(r_ids, s_ids, probe_base: int, total, nonzero, k_cap: int,
@@ -131,8 +164,8 @@ def _checked(r_ids, s_ids, probe_base: int, total, nonzero, k_cap: int,
     dev = r_ids.device
     if probe_base:
         s_ids = torch.where(s_ids >= 0, s_ids + probe_base, -1)
-    total = torch.as_tensor(total, dtype=torch.int64, device=dev)
-    nonzero = torch.as_tensor(nonzero, dtype=torch.int64, device=dev)
+    total = _upload(total, torch.int64, dev, "checked.total")
+    nonzero = _upload(nonzero, torch.int64, dev, "checked.nonzero")
     fits = (total <= capacity) & (nonzero <= k_cap)
     return r_ids, s_ids, total, fits
 
@@ -146,14 +179,16 @@ def probe_materialize(ht: HashJoinTable, state: SortedProbe, k_cap: int,
     slots past the total. ``fits`` (0-d bool tensor) is False when either
     capacity is too small; the output is then a truncated multiset."""
     lo_c, _, sid_c, offs_c = _compact(state, k_cap)
-    bpos, sid_out = expand(offs_c, lo_c, sid_c, capacity)
-    dev = bpos.device
-    t = torch.arange(capacity, dtype=torch.int64, device=dev)
-    valid = t < torch.as_tensor(total, dtype=torch.int64, device=dev)
-    bpos = bpos.clamp(0, ht.num_rows - 1).long()
-    neg = torch.tensor(-1, dtype=torch.int32, device=dev)
-    r_ids = torch.where(valid, ht.sorted_ids[bpos], neg)
-    s_ids = torch.where(valid, sid_out + probe_base, neg)
+    with trace.span("pairs"):
+        bpos, sid_out = expand(offs_c, lo_c, sid_c, capacity)
+        dev = bpos.device
+        t = torch.arange(capacity, dtype=torch.int64, device=dev)
+        valid = t < _upload(total, torch.int64, dev, "total")
+        bpos = bpos.clamp(0, ht.num_rows - 1).long()
+        with trace.sync("neg"):
+            neg = torch.tensor(-1, dtype=torch.int32, device=dev)
+        r_ids = torch.where(valid, ht.sorted_ids[bpos], neg)
+        s_ids = torch.where(valid, sid_out + probe_base, neg)
     return _checked(r_ids, s_ids, 0, total, nonzero, k_cap, capacity)
 
 
@@ -165,8 +200,9 @@ def probe_materialize_runs(ht: HashJoinTable, state: SortedProbe, k_cap: int,
     contract as :func:`probe_materialize`; ``total`` and ``nonzero`` are
     ints."""
     lo_c, _, sid_c, offs_c = _compact(state, k_cap)
-    r_ids, s_ids = expand_runs(offs_c, lo_c, sid_c, ht.sorted_ids,
-                               min(nonzero, k_cap), total, capacity)
+    with trace.span("pairs"):
+        r_ids, s_ids = expand_runs(offs_c, lo_c, sid_c, ht.sorted_ids,
+                                   min(nonzero, k_cap), total, capacity)
     return _checked(r_ids, s_ids, probe_base, total, nonzero, k_cap,
                     capacity)
 
@@ -181,9 +217,10 @@ def probe_materialize_groups(ht: HashJoinTable, state: SortedProbe,
     lo_c, cnt_c, sid_c, offs_c = _compact(state, k_cap)
     goff, glo, gnb, ngroups = _group_heads(lo_c, cnt_c, offs_c, k_cap,
                                            nonzero)
-    r_ids, s_ids = expand_groups(offs_c, sid_c, goff, glo, gnb,
-                                 ht.sorted_ids, min(nonzero, k_cap), ngroups,
-                                 total, capacity)
+    with trace.span("pairs"):
+        r_ids, s_ids = expand_groups(offs_c, sid_c, goff, glo, gnb,
+                                     ht.sorted_ids, min(nonzero, k_cap),
+                                     ngroups, total, capacity)
     return _checked(r_ids, s_ids, probe_base, total, nonzero, k_cap,
                     capacity)
 
@@ -201,8 +238,10 @@ def probe_materialize_fill(ht: HashJoinTable, state: SortedProbe, k_cap: int,
     lo_c, cnt_c, sid_c, offs_c = _compact(state, k_cap, all_matched)
     goff, glo, gnb, ngroups = _group_heads(lo_c, cnt_c, offs_c, k_cap,
                                            nonzero)
-    r_ids, s_ids = expand_fill(offs_c, sid_c, goff, glo, gnb, ht.sorted_ids,
-                               min(nonzero, k_cap), ngroups, total, capacity)
+    with trace.span("pairs"):
+        r_ids, s_ids = expand_fill(offs_c, sid_c, goff, glo, gnb,
+                                   ht.sorted_ids, min(nonzero, k_cap),
+                                   ngroups, total, capacity)
     return _checked(r_ids, s_ids, probe_base, total, nonzero, k_cap,
                     capacity)
 
@@ -311,7 +350,8 @@ def plan_materialize(ht: HashJoinTable, state: SortedProbe, k_cap: int,
     GROUPS_MIN_DUP; runs from RUNS_MIN_DUP; else expand. A path is taken
     when its ``fits`` holds; the Hopper kernels have no envelope, so only
     an undersized capacity fails one, and expand is taken whatever its
-    ``fits``."""
+    ``fits``. Spans ``materialize`` and, a path tried,
+    ``materialize.<path>``, in the table's join."""
     all_matched = nonzero == state.counts.shape[0]
     paths = []
     if total >= nonzero * GROUPS_MIN_DUP:
@@ -322,17 +362,25 @@ def plan_materialize(ht: HashJoinTable, state: SortedProbe, k_cap: int,
         paths.append(("runs", probe_materialize_runs, {}))
     paths.append(("expand", probe_materialize, {}))
 
-    for name, fn, kw in paths:
-        def replay(fn=fn, kw=kw):
-            return fn(ht, state, k_cap, capacity, probe_base, total=total,
-                      nonzero=nonzero, **kw)[:3]
+    with trace.span("materialize", join=ht.trace_id):
+        for name, fn, kw in paths:
+            def replay(fn=fn, kw=kw):
+                return fn(ht, state, k_cap, capacity, probe_base,
+                          total=total, nonzero=nonzero, **kw)[:3]
 
-        r_ids, s_ids, tot, fits = fn(ht, state, k_cap, capacity, probe_base,
-                                     total=total, nonzero=nonzero, **kw)
-        if name == "expand" or bool(fits):
-            return name, (r_ids, s_ids, tot), replay
-        # free this try's full-capacity columns before the next allocates
-        del r_ids, s_ids, tot, fits
+            with trace.span("materialize." + name):
+                r_ids, s_ids, tot, fits = fn(ht, state, k_cap, capacity,
+                                             probe_base, total=total,
+                                             nonzero=nonzero, **kw)
+                taken = name == "expand"
+                if not taken:
+                    with trace.sync("fits"):
+                        taken = bool(fits)
+            if taken:
+                return name, (r_ids, s_ids, tot), replay
+            # free this try's full-capacity columns before the next
+            # allocates
+            del r_ids, s_ids, tot, fits
 
 
 def merge_join(build_keys, probe_keys, *,

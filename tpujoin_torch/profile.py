@@ -14,7 +14,14 @@ their kernels a second time. The busy share is the union of the device
 rows' intervals over the host wall time of the traced run, which ends in a
 synchronize.
 
-stdout is one JSON line; the kernel table goes to stderr.
+The traced run also records the program's spans (tpujoin_torch/trace.py):
+the span table, by span name with its count, device ms, host ms and the
+host syncs directly inside it, is the JSON line's ``"spans"`` and goes to
+stderr after the kernel table; the set-up records (``setup.import``,
+``setup.kernels``) lead it. On a v2 join it splits build, count and
+materialize into their phases and names every host sync of the path.
+
+stdout is one JSON line; the kernel and span tables go to stderr.
 
 Usage: python -m tpujoin_torch.profile [--op join] [--config NAME]
                                        [--engine {v1,v2}] [--scale F]
@@ -33,6 +40,7 @@ from collections import defaultdict
 
 import torch
 
+from tpujoin_torch import trace
 from tpujoin_torch.bench import (DENSE_MATCHES, FILTER_THRESHOLD, OP_ROWS,
                                  aggregate_inputs, config_keys, eprint,
                                  filter_capacity, filter_values,
@@ -87,10 +95,12 @@ def _timed(fn) -> float:
 def profile_fn(fn, dev: torch.device) -> dict:
     """Run ``fn`` to warm up (which builds and loads the kernels), then
     untraced and traced; return the timings, the busy share, the peak
-    allocation and the kernels by device time."""
+    allocation, the kernels by device time and the traced run's span
+    table."""
     _timed(fn)
     untraced = _timed(fn)
     torch.cuda.reset_peak_memory_stats(dev)
+    trace.clear()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -119,6 +129,7 @@ def profile_fn(fn, dev: torch.device) -> dict:
         "busy_share": busy_us / (window * 1e6),
         "peak_gib": peak / 2**30,
         "kernels": kernels,
+        "spans": trace.table(trace.records()),
     }
 
 
@@ -191,6 +202,13 @@ def main(argv=None) -> int:
         out = profile_aggregate(args.rows)
     for k in out["kernels"]:
         eprint(f"{k['ms']:10.3f} ms {k['calls']:5d}  {k['name'][:100]}")
+    eprint(f"{'span':24s} {'count':>5s} {'device ms':>10s} {'host ms':>10s} "
+           f"{'syncs':>5s}")
+    for row in out["spans"]:
+        dev_ms = ("-" if row["device_ms"] is None
+                  else f"{row['device_ms']:.3f}")
+        eprint(f"{row['name']:24s} {row['count']:5d} {dev_ms:>10s} "
+               f"{row['host_ms']:10.3f} {row['syncs']:5d}")
     print(json.dumps(out), flush=True)
     return 0
 
