@@ -13,14 +13,17 @@ Phases, one line each (details on stderr):
               time the device and not the host's launches):
               K1-K4 on ref_low_selectivity's keys (sorted, counted,
               compacted: K1's histogram and each digit pass on the keys as
-              they arrive at its digit, sort_pairs on both sides, timed
-              beside torch.sort(stable=True); K2's co-rank pass and count
+              they arrive at its digit, the iota pass timed beside the
+              shift-0 pass that reads its ids, sort_pairs on both sides,
+              timed beside torch.sort(stable=True), and sort_rows, timed
+              beside torch.arange and sort_pairs; K2's co-rank pass and count
               kernel, and K4's partition pass and fill kernel, each timed
               under torch.profiler beside the whole call), K2 on
               zipf_skew's keys (10M x 10M, Zipf(1.0)), then K1 on a ragged
               width with the i32 extremes and a small join checked against
-              the native oracle; sort_pairs on ref_high_selectivity's build
-              keys, timed beside torch.sort, and K2 on its sorted keys; K5
+              the native oracle; sort_pairs and sort_rows on
+              ref_high_selectivity's build keys, sort_pairs timed beside
+              torch.sort, and K2 on its sorted keys; K5
               and K7 (expand_fill, expand_groups, expand_runs) on
               ref_high_selectivity's count state at its full capacity
               (~1e9 slots), K5's and K7b's partition pass and fill
@@ -430,6 +433,36 @@ def check_sort_pairs(keys, ids, what: str, timed: bool = False):
     return got
 
 
+def check_sort_rows(keys, what: str, timed: bool = False) -> None:
+    """K1's sort_rows bitwise against sort_rows_plain and against
+    sort_pairs of the row numbers; with ``timed``, it and an arange with
+    sort_pairs, the same result from an id array, timed beside it."""
+    n = keys.shape[0]
+    got = merge_sort.sort_rows(keys)
+
+    def arange_pairs():
+        return merge_sort.sort_pairs(keys, torch.arange(
+            n, dtype=torch.int32, device=keys.device))
+
+    for want, of in ((merge_sort.sort_rows_plain(keys), "its plain version"),
+                     (arange_pairs(), "sort_pairs of the row numbers")):
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"sort_rows ({what}) differs from {of}: "
+                                 f"{err}")
+    del got
+    line = (f"sort_rows n={n} ({what}): exact, and equal to sort_pairs of "
+            f"the row numbers")
+    if timed:
+        rows_ms = cuda_ms(lambda: merge_sort.sort_rows(keys), "sort_rows")
+        pairs_ms = cuda_ms(arange_pairs, "arange + sort_pairs")
+        floor_ms = (4 * n + 12 * n + 3 * 16 * n) / hbm_bytes_per_s() * 1e3
+        line += (f"; {rows_ms:.6f} ms, histogram + iota pass + 3 passes "
+                 f"(floor {floor_ms:.6f} ms; torch.arange + sort_pairs "
+                 f"{pairs_ms:.6f} ms)")
+    say("kernels", line)
+
+
 def kernels_phase(dev, cfg, results: dict) -> None:
     """K1-K4 against their plain versions on the inputs the main path
     gives them for ``cfg``: both sorts of the keys, the count of the sorted
@@ -461,8 +494,17 @@ def kernels_phase(dev, cfg, results: dict) -> None:
     say("kernels", f"sort_pass: slowest at shift {slowest_shift}, "
         f"{slowest_ms:.3f} ms; bound "
         f"{results['sort_pass']['bound_ms']:.3f} ms a pass")
+    iota = check_kernel("sort_pass_iota",
+                        lambda: merge_sort.sort_pass_iota(bk, hist),
+                        lambda: merge_sort.sort_pass_iota_plain(bk), results)
+    bound(results, "sort_pass_iota", 12 * n, n)
+    say("kernels", f"sort_pass_iota: {iota['ms']:.6f} ms against "
+        f"{passes[0][0]:.6f} for sort_pass at shift 0 with the ids read; "
+        f"bound {results['sort_pass_iota']['bound_ms']:.6f} ms (12 B a "
+        f"pair)")
     del k, i, hist, passes
     bsk, _ = check_sort_pairs(bk, ids, "build side", timed=True)
+    check_sort_rows(bk, "build side", timed=True)
     m = pk.shape[0]
     pids = torch.arange(m, dtype=torch.int32, device=dev)
     psk, psid = check_sort_pairs(pk, pids, "probe side")
@@ -525,6 +567,7 @@ def kernels_phase(dev, cfg, results: dict) -> None:
                                  f"its plain version on the i32 extremes")
         k, i = want
     check_sort_pairs(keys, ids, "i32 extremes")
+    check_sort_rows(keys, "i32 extremes")
     del keys, ids, hist, k, i, want
 
     # a small join on the card against the oracle and the CPU path
@@ -593,6 +636,7 @@ def dense_kernels_phase(dev, cfg, results: dict) -> None:
     bk, pk = bench.config_keys(cfg, dev)
     check_sort_pairs(bk, torch.arange(bk.shape[0], dtype=torch.int32,
                                       device=dev), "build side", timed=True)
+    check_sort_rows(bk, "build side")
     ht = build(bk)
     check_count(ht.sorted_keys, torch.sort(pk).values, cfg.name)
     state, total, nonzero = mj.probe_count(ht, pk)
@@ -739,6 +783,7 @@ def k6_phase(dev, results: dict) -> None:
 # phase runs both of a pair)
 COUNTERS = {"sort_histogram": "tj_sort_histogram",
             "sort_pass": "tj_sort_pass",
+            "sort_pass_iota": "tj_sort_pass_iota",
             "merge_count": "tj_merge_count",
             "compact3": "tj_compact_cols",
             "expand": "tj_expand",
@@ -806,15 +851,18 @@ def runs_phase(dev, results: dict) -> None:
 # whose launches go into the kernels line (from the entry that runs them
 # on a reference config)
 MATRIX_PATHS = {
-    "ref_low_selectivity": ("sort_histogram", "sort_pass", "merge_count",
-                            "compact3", "expand"),
-    "ref_high_selectivity": ("sort_histogram", "sort_pass", "merge_count",
-                             "expand_fill"),
-    "ref_low_selectivity[v1]": ("sort_histogram", "sort_pass"),
-    "ref_high_selectivity[v1-rle]": ("sort_histogram", "sort_pass"),
-    "zipf_skew": ("sort_histogram", "sort_pass", "merge_count"),
-    "multi_join": ("sort_histogram", "sort_pass", "merge_count", "compact3",
-                   "expand", "compact_ids"),
+    "ref_low_selectivity": ("sort_histogram", "sort_pass_iota", "sort_pass",
+                            "merge_count", "compact3", "expand"),
+    "ref_high_selectivity": ("sort_histogram", "sort_pass_iota", "sort_pass",
+                             "merge_count", "expand_fill"),
+    "ref_low_selectivity[v1]": ("sort_histogram", "sort_pass_iota",
+                                "sort_pass"),
+    "ref_high_selectivity[v1-rle]": ("sort_histogram", "sort_pass_iota",
+                                     "sort_pass"),
+    "zipf_skew": ("sort_histogram", "sort_pass_iota", "sort_pass",
+                  "merge_count"),
+    "multi_join": ("sort_histogram", "sort_pass_iota", "sort_pass",
+                   "merge_count", "compact3", "expand", "compact_ids"),
 }
 MATRIX_RECORD = {"ref_low_selectivity": MATRIX_PATHS["ref_low_selectivity"],
                  "ref_high_selectivity": ("expand_fill",)}
@@ -953,8 +1001,8 @@ def v1_phase(dev, results: dict) -> None:
     bk = rng.integers(1, V1_KEYS + 1, V1_ROWS).astype(np.int32)
     pk = rng.integers(1, V1_KEYS + 1, V1_ROWS).astype(np.int32)
     (r, s), launches = _counted(lambda: tpujoin_torch.hash_join(bk, pk),
-                                ("sort_histogram", "sort_pass",
-                                 "fill_forward"), "hash_join")
+                                ("sort_histogram", "sort_pass_iota",
+                                 "sort_pass", "fill_forward"), "hash_join")
     r_cpu, s_cpu = tpujoin_torch.hash_join(bk, pk, device="cpu")
     if oracle.check_join(bk, pk, r, s) != 1 or not same_pairs(r, s, r_cpu,
                                                               s_cpu):
@@ -980,7 +1028,8 @@ def v1_phase(dev, results: dict) -> None:
     t0 = time.perf_counter()
     out, launches = _counted(
         lambda: bench.bench_join(cfg, True, "v1", dev),
-        ("sort_histogram", "sort_pass", "fill_forward"), "the v1 dense cell")
+        ("sort_histogram", "sort_pass_iota", "sort_pass", "fill_forward"),
+        "the v1 dense cell")
     print(json.dumps(out), flush=True)
     if out["verified"] is not True or out["rle_verified"] is not True:
         raise AssertionError("v1 dense cell fails its check")
@@ -1026,7 +1075,8 @@ def split_phase(dev, scale: float) -> None:
     bk_np, pk_np = bk.cpu().numpy(), pk.cpu().numpy()
     t0 = time.perf_counter()
     semi, launches = _counted(lambda: tpujoin_torch.semi_join(bk_np, pk_np),
-                              ("sort_pass", "merge_count", "compact_ids"),
+                              ("sort_pass_iota", "sort_pass", "merge_count",
+                               "compact_ids"),
                               "semi_join")
     anti = tpujoin_torch.anti_join(bk_np, pk_np)
     seconds = time.perf_counter() - t0
@@ -1956,7 +2006,7 @@ def main(argv=None) -> int:
         **{name: {"source": src + "radix_sort.cu",
                   "replaces": "tpujoin/kernels/merge_sort.py:389, "
                               "tpujoin/kernels/merge_sort.py:307"}
-           for name in ("sort_histogram", "sort_pass")},
+           for name in ("sort_histogram", "sort_pass", "sort_pass_iota")},
         "merge_count": {"source": src + "merge_count.cu",
                         "replaces": "tpujoin/kernels/merge_count.py:201, "
                                     "tpujoin/kernels/merge_count.py:218"},

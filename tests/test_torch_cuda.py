@@ -77,6 +77,79 @@ def test_sort_kernels(n, dist):
            merge_sort.sort_pairs_plain(keys, ids))
 
 
+def _rows_want(keys):
+    ids = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
+    return merge_sort.sort_pairs(keys, ids)
+
+
+@pytest.mark.parametrize("n", [0, 1, _TILE - 1, _TILE, _TILE + 1,
+                               5 * _TILE + 3])
+def test_sort_rows_kernels(n):
+    """The iota pass and sort_rows on the i32 extremes, a ragged last tile
+    among them, bitwise against their plain versions and against
+    sort_pairs of the row numbers: no pad pair takes a real row's id."""
+    keys = torch.from_numpy(_sort_keys("extremes", n)).cuda()
+    hist = merge_sort.sort_histogram(keys)
+    _equal(merge_sort.sort_pass_iota(keys, hist),
+           merge_sort.sort_pass_iota_plain(keys))
+    got = merge_sort.sort_rows(keys)
+    _equal(got, merge_sort.sort_rows_plain(keys))
+    _equal(got, _rows_want(keys))
+
+
+def test_sort_rows_at_full_width():
+    """sort_rows on 100M uniform keys, the build side of ref_low, bitwise
+    its plain version and sort_pairs of the row numbers."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(20)
+    keys = torch.randint(1, 10**9 + 1, (100_000_000,), generator=g,
+                         device="cuda", dtype=torch.int32)
+    got = merge_sort.sort_rows(keys)
+    _equal(got, merge_sort.sort_rows_plain(keys))
+    _equal(got, _rows_want(keys))
+
+
+@pytest.mark.parametrize("entry", ["tj_sort_pass_iota", "tj_sort_pass"])
+def test_sort_passes_refuse_n_past_int32(entry):
+    """A pass writes i32 output indices: n > INT32_MAX is refused before
+    anything launches (the pointers are never read)."""
+    from tpujoin_torch.kernels import _build
+    x = torch.zeros(4096, dtype=torch.int32, device="cuda")
+    hist = merge_sort.sort_histogram(x)
+    n = IMAX + 1
+    words = (n + _TILE - 1) // _TILE * merge_sort.RADIX + 1
+    scratch = torch.zeros(1, dtype=torch.int64, device="cuda")
+    ptrs = ((x.data_ptr(),) * 3 if entry == "tj_sort_pass_iota"
+            else (x.data_ptr(),) * 4)
+    rest = ((n, hist.data_ptr()) if entry == "tj_sort_pass_iota"
+            else (n, 0, hist.data_ptr()))
+    before = launches[entry]
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        _build.call(entry, x.device, *ptrs, *rest, scratch.data_ptr(), words)
+    assert launches[entry] == before
+
+
+def test_v2_join_makes_its_ids_in_the_sort():
+    """A v2 join sorts both sides with sort_rows: one iota pass and three
+    id passes a side; a distributed join's sorts, whose ids are pads or
+    positions, take sort_pairs and no iota pass."""
+    from tpujoin_torch.parallel import shuffle_join as sj
+    from tpujoin_torch.parallel.mesh import make_mesh
+    rng = np.random.default_rng(5)
+    bk = torch.from_numpy(rng.integers(1, 5000, 20_000).astype(np.int32))
+    pk = torch.from_numpy(rng.integers(1, 5000, 30_000).astype(np.int32))
+    entries = ("tj_sort_pass_iota", "tj_sort_pass", "tj_sort_histogram")
+    before = [launches[e] for e in entries]
+    r, s = tpujoin_torch.merge_join(bk.cuda(), pk.cuda())
+    assert [launches[e] - b for e, b in zip(entries, before)] == [2, 6, 2]
+    assert oracle.check_join(bk.numpy(), pk.numpy(), r, s) == 1
+    before = [launches[e] for e in entries]
+    sj.distributed_hash_join(bk.numpy(), pk.numpy(),
+                             mesh=make_mesh(4, device="cuda"))
+    assert launches["tj_sort_pass_iota"] == before[0]
+    assert launches["tj_sort_pass"] > before[1]
+
+
 def _count_keys(spread, n: int, m: int, rng):
     """Sorted (build, probe) keys for test_merge_count_kernel."""
     if spread == "top":

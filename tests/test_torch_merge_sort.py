@@ -1,6 +1,7 @@
 """K1, the (key, id) sort of tpujoin_torch, against the JAX package's Pallas
 merge sort (interpret mode) and against numpy: sort_pairs, and the chain of
-plain versions its kernels run (one digit histogram, four digit passes).
+plain versions its kernels run (one digit histogram, four digit passes);
+sort_rows and the iota pass against sort_pairs of the row numbers.
 
 Both sorts may order ids within a run of equal keys differently (the JAX
 one is unstable), so ids are compared as a multiset per equal-key run:
@@ -149,6 +150,32 @@ def test_one_pass_is_stable(shift):
     same = np.diff(digit.astype(np.int64)) == 0
     assert (np.diff(i)[same] > 0).all()
     np.testing.assert_array_equal(keys[i], k)
+
+
+@pytest.mark.parametrize("dist,n", [
+    ("uniform", N), ("dup8", N), ("all_equal", N), ("reversed", N),
+    ("extremes", N), ("uniform", N - 77), ("extremes", ms.TILE + 1),
+    ("uniform", 1), ("uniform", 0),
+])
+def test_sort_rows_is_sort_pairs_of_the_row_numbers(dist, n):
+    keys = torch.from_numpy(_keys(dist, n))
+    want = ms.sort_pairs(keys, torch.arange(n, dtype=torch.int32))
+    for got in (ms.sort_rows(keys), ms.sort_rows_plain(keys)):
+        for g, w in zip(got, want, strict=True):
+            assert g.dtype == w.dtype == torch.int32 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dist", ["dup8", "extremes"])
+def test_iota_pass_is_the_shift0_pass_of_the_row_numbers(dist):
+    keys = torch.from_numpy(_keys(dist, 3 * ms.TILE + 5, seed=4))
+    ids = torch.arange(keys.shape[0], dtype=torch.int32)
+    want = ms.sort_pass_plain(keys, ids, 0)
+    for got in (ms.sort_pass_iota(keys, ms.sort_histogram(keys)),
+                ms.sort_pass_iota_plain(keys)):
+        for g, w in zip(got, want, strict=True):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    with pytest.raises(ValueError):
+        ms.sort_pass_iota(keys, ms.sort_histogram(keys)[:2])
 
 
 def test_kernels_leave_inputs():

@@ -22,8 +22,8 @@ PATHS = {"expand": (10**6, ["sync.total", "sync.neg", "sync.checked.total",
                        "sync.checked.nonzero", "sync.fits"])}
 
 # each span's parent on a path that takes its first try
-PARENTS = {"build": None, "build.ids": "build", "build.sort": "build",
-           "count": None, "count.ids": "count", "count.sort": "count",
+PARENTS = {"build": None, "build.sort": "build",
+           "count": None, "count.sort": "count",
            "count.merge": "count", "count.totals": "count",
            "materialize": None, "compact": "materialize.{path}",
            "offsets": "materialize.{path}", "pairs": "materialize.{path}",
@@ -75,8 +75,8 @@ def test_a_join_gives_its_span_tree(path):
     recs = _spans()
     parents = {k.format(path=path): v and v.format(path=path)
                for k, v in PARENTS.items()}
-    want = {"build", "build.ids", "build.sort", "count", "count.ids",
-            "count.sort", "count.merge", "count.totals", "materialize",
+    want = {"build", "build.sort", "count", "count.sort", "count.merge",
+            "count.totals", "materialize",
             f"materialize.{path}", "compact", "offsets", "pairs", *syncs}
     if path == "fill":
         want.add("group_heads")

@@ -11,13 +11,18 @@
 //   pass_kernel       one stable counting-sort pass on the digit at
 //                     `shift`, single-pass (Adinets & Merrill, "Onesweep: A
 //                     Faster Least Significant Digit Radix Sort for GPUs",
-//                     2022), run four times, shifts 0, 8, 16 and 24.
+//                     2022), run four times, shifts 0, 8, 16 and 24. Its
+//                     iota form (IOTA) runs shift 0 on keys alone: a pair's
+//                     id is its index, made where the pair is stored, so a
+//                     caller whose ids are the row numbers writes no id
+//                     array and the pass reads none.
 //
 // What bounds it on the H100: bytes. The histogram reads 4 B a pair
 // (0.119 ms for 100M pairs at 3.35 TB/s), each pass reads and writes the
 // key and the id, 16 B a pair (0.478 ms), so the sort's floor is ~2.03 ms
-// at 100M. The merge design it replaces needed 1 + ceil(log2(n / 2048))
-// = 17 passes of 16 B a pair at 100M, >= 8.1 ms even at the byte bound.
+// at 100M; the iota pass reads the key alone, 12 B a pair (0.358 ms). The
+// merge design it replaces needed 1 + ceil(log2(n / 2048)) = 17 passes of
+// 16 B a pair at 100M, >= 8.1 ms even at the byte bound.
 // A pass does not reach its byte bound: its instructions a pair (eight
 // ballots to rank it, the shared-memory scatter, the indexed stores) keep
 // the SMs' issue slots busier than the memory (see PERF.md).
@@ -29,7 +34,7 @@
 //     tile (PASS_TILE pairs) from an atomic ticket, so every tile it waits
 //     on belongs to a block that already runs. Its keys come into
 //     registers; its ids stream into shared memory (cp.async), so they
-//     take no registers;
+//     take no registers; the iota pass has no ids to load;
 //   - each warp ranks a contiguous WARP_ITEMS of the tile, item j of lane l
 //     at j * 32 + l, item by item, lane by lane: the input order, so the
 //     pass is stable. Lanes with the same digit find each other with eight
@@ -46,6 +51,7 @@
 // padding of n: the ragged last tile ranks its missing pairs as digit 255,
 // after every real pair, and does not count them.
 #include <algorithm>
+#include <cstddef>
 
 #include "lookback.cuh"
 
@@ -68,8 +74,8 @@ static_assert(PASS_TILE % 4 == 0, "a tile starts on a 16-byte boundary");
 // The dynamic shared memory of a pass block.
 struct PassSmem {
   int32_t key[PASS_TILE];    // the tile's keys in digit order
-  int32_t id_in[PASS_TILE];  // its ids in input order
-  int32_t id[PASS_TILE];     // and in digit order
+  int32_t id[PASS_TILE];     // its ids in digit order
+  int32_t id_in[PASS_TILE];  // and in input order
 };
 
 __device__ __forceinline__ uint32_t digit_of(int32_t key, int shift) {
@@ -152,10 +158,13 @@ __device__ __forceinline__ unsigned long long block_exclusive_scan(
 }
 
 // One stable counting-sort pass of (ki, ii) on the digit at `shift` into
-// (ko, io). hist: the (DIGITS, RADIX) digit histogram of the keys. status:
+// (ko, io); with IOTA, of (ki, the keys' indices), and ii is not read.
+// hist: the (DIGITS, RADIX) digit histogram of the keys. status:
 // cdiv(n, PASS_TILE) * RADIX words, then the ticket, all zero at launch.
-// Dynamic shared memory: one PassSmem. Two blocks an SM: at most 128
-// registers a thread, which the 30 keys and 30 ranks a thread fill.
+// Dynamic shared memory: the first pass_smem(IOTA) bytes of a PassSmem.
+// Two blocks an SM: at most 128 registers a thread, which the 30 keys and
+// 30 ranks a thread fill.
+template <bool IOTA>
 __global__ void __launch_bounds__(PASS_THREADS, 2)
 pass_kernel(const int32_t* __restrict__ ki, const int32_t* __restrict__ ii,
             int32_t* __restrict__ ko, int32_t* __restrict__ io, int64_t n,
@@ -181,7 +190,7 @@ pass_kernel(const int32_t* __restrict__ ki, const int32_t* __restrict__ ii,
 
   // the ids stream into shared memory and wait there for the output; the
   // keys come into registers for the ranking
-  copy_async(sm.id_in, ii + base, tile_n);
+  if (!IOTA) copy_async(sm.id_in, ii + base, tile_n);
   int32_t key[PASS_ITEMS];
 #pragma unroll
   for (int j = 0; j < PASS_ITEMS; ++j) {
@@ -236,7 +245,7 @@ pass_kernel(const int32_t* __restrict__ ki, const int32_t* __restrict__ ii,
       s_sums);
   const uint32_t start = (uint32_t)both;
   s_start[t] = start;
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  if (!IOTA) asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
   // the pairs into shared memory in digit order, stable within a digit
@@ -246,7 +255,7 @@ pass_kernel(const int32_t* __restrict__ ki, const int32_t* __restrict__ ii,
     const uint32_t d = e < tile_n ? digit_of(key[j], shift) : RADIX - 1;
     const uint32_t slot = s_start[d] + s_warp[warp][d] + rank[j];
     sm.key[slot] = key[j];
-    sm.id[slot] = sm.id_in[e];
+    sm.id[slot] = IOTA ? (int32_t)(base + e) : sm.id_in[e];
   }
 
   // digit t's pairs in the tiles before this one: LOOKBACK predecessors at
@@ -290,6 +299,36 @@ pass_kernel(const int32_t* __restrict__ ki, const int32_t* __restrict__ ii,
   }
 }
 
+// The dynamic shared memory of a pass block: the iota pass leaves out
+// id_in, the last member.
+constexpr int pass_smem(bool iota) {
+  return iota ? (int)offsetof(PassSmem, id_in) : (int)sizeof(PassSmem);
+}
+
+template <bool IOTA>
+int launch_pass(const int32_t* ki, const int32_t* ii, int32_t* ko,
+                int32_t* io, int64_t n, int64_t shift, const int32_t* hist,
+                unsigned long long* scratch, int64_t scratch_words,
+                cudaStream_t stream) {
+  // i32 output indices and 32-bit status words
+  if (shift < 0 || shift > 24 || shift % 8 != 0 || n > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  const int64_t tiles = (n + PASS_TILE - 1) / PASS_TILE;
+  if (scratch_words < tiles * RADIX + 1) return (int)cudaErrorInvalidValue;
+  const int smem = pass_smem(IOTA);
+  cudaError_t err = cudaFuncSetAttribute(
+      pass_kernel<IOTA>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(scratch, 0, (tiles * RADIX + 1) * 8, stream);
+  if (err != cudaSuccess) return (int)err;
+  pass_kernel<IOTA><<<(unsigned)tiles, PASS_THREADS, smem, stream>>>(
+      ki, ii, ko, io, n, (int)shift,
+      reinterpret_cast<const uint32_t*>(hist), scratch,
+      reinterpret_cast<unsigned int*>(scratch + tiles * RADIX));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -324,23 +363,17 @@ int tj_sort_pass(const int32_t* ki, const int32_t* ii, int32_t* ko,
                  int32_t* io, int64_t n, int64_t shift, const int32_t* hist,
                  unsigned long long* scratch, int64_t scratch_words,
                  cudaStream_t stream) {
-  // i32 output indices and 32-bit status words
-  if (shift < 0 || shift > 24 || shift % 8 != 0 || n > INT32_MAX)
-    return (int)cudaErrorInvalidValue;
-  if (n <= 0) return 0;
-  const int64_t tiles = (n + PASS_TILE - 1) / PASS_TILE;
-  if (scratch_words < tiles * RADIX + 1) return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(PassSmem);
-  cudaError_t err = cudaFuncSetAttribute(
-      pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(scratch, 0, (tiles * RADIX + 1) * 8, stream);
-  if (err != cudaSuccess) return (int)err;
-  pass_kernel<<<(unsigned)tiles, PASS_THREADS, smem, stream>>>(
-      ki, ii, ko, io, n, (int)shift,
-      reinterpret_cast<const uint32_t*>(hist), scratch,
-      reinterpret_cast<unsigned int*>(scratch + tiles * RADIX));
-  return (int)cudaGetLastError();
+  return launch_pass<false>(ki, ii, ko, io, n, shift, hist, scratch,
+                            scratch_words, stream);
+}
+
+// tj_sort_pass at shift 0 with the ids 0, 1, ..., n - 1, which it makes
+// and does not read.
+int tj_sort_pass_iota(const int32_t* ki, int32_t* ko, int32_t* io, int64_t n,
+                      const int32_t* hist, unsigned long long* scratch,
+                      int64_t scratch_words, cudaStream_t stream) {
+  return launch_pass<true>(ki, nullptr, ko, io, n, 0, hist, scratch,
+                           scratch_words, stream);
 }
 
 const char* tj_error_string(int err) {

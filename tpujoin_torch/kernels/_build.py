@@ -36,6 +36,7 @@ P, I64 = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     "tj_sort_histogram": (P, I64, P, P),
     "tj_sort_pass": (P, P, P, P, I64, I64, P, P, I64, P),
+    "tj_sort_pass_iota": (P, P, P, I64, P, P, I64, P),
     "tj_merge_count": (P, I64, P, I64, P, P, P, I64, P),
     "tj_compact_count": (P, I64, I64, P, P),
     "tj_compact_ids": (P, I64, I64, P, I64, P, I64, P, P),

@@ -16,6 +16,13 @@ stable counting-sort pass on one digit; :func:`sort_pairs` chains one
 histogram and always four passes, ping-ponging between two buffer pairs.
 Any n sorts, with every i32 key: no sentinel keys, no padding.
 
+:func:`sort_rows` is :func:`sort_pairs` of the keys and their row numbers
+0..n-1, the ids of a join's build and probe sides. Its first pass is
+:func:`sort_pass_iota`, the shift-0 pass that makes each id from the
+pair's index: no id array is written before the sort, and the first pass
+reads the keys alone (12 B a pair, not 16). The passes at shifts 8, 16
+and 24 are :func:`sort_pass` as in :func:`sort_pairs`.
+
 Each pass is stable, so the sort is: ties keep their input order, and
 kernels and plain versions agree bitwise on keys and ids.
 
@@ -104,6 +111,52 @@ def sort_pass(keys: torch.Tensor, ids: torch.Tensor, shift: int,
     return ko, io
 
 
+def sort_pass_iota_plain(keys: torch.Tensor):
+    """The plain version of :func:`sort_pass_iota`: :func:`sort_pass_plain`
+    at shift 0 of the keys and their indices."""
+    ids = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
+    return sort_pass_plain(keys, ids, 0)
+
+
+def sort_pass_iota(keys: torch.Tensor, hist: torch.Tensor,
+                   out: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """:func:`sort_pass` at shift 0 of (keys, 0..n-1): the kernel makes
+    each id from its pair's index and reads no ids."""
+    _build.check_shapes("sort_pass_iota", (hist, (len(SHIFTS), RADIX)))
+    if _build.on_cpu(keys):
+        return sort_pass_iota_plain(keys)
+    ko, io = out if out is not None else (torch.empty_like(keys),
+                                          torch.empty_like(keys))
+    _build.check_cuda_i32(keys, ko, io, hist.view(-1))
+    n = keys.shape[0]
+    if ko.shape[0] != n or io.shape[0] != n:
+        raise ValueError("keys and outputs differ in length")
+    if n and keys.data_ptr() in {ko.data_ptr(), io.data_ptr()}:
+        raise ValueError("sort_pass_iota: the outputs overwrite the keys")
+    if n:
+        words = cdiv(n, TILE) * RADIX + 1
+        scratch = torch.empty(words, dtype=torch.int64, device=keys.device)
+        _build.call("tj_sort_pass_iota", keys.device, keys.data_ptr(),
+                    ko.data_ptr(), io.data_ptr(), n, hist.data_ptr(),
+                    scratch.data_ptr(), words)
+    return ko, io
+
+
+def _sort(keys: torch.Tensor, ids: torch.Tensor | None):
+    """One histogram, then four digit passes between two buffer pairs;
+    with no ids the first is the iota pass."""
+    hist = sort_histogram(keys)
+    bufs = [(torch.empty_like(keys), torch.empty_like(keys))
+            for _ in range(2)]
+    k, i = keys, ids
+    for p, shift in enumerate(SHIFTS):
+        if i is None:
+            k, i = sort_pass_iota(k, hist, out=bufs[p % 2])
+        else:
+            k, i = sort_pass(k, i, shift, hist, out=bufs[p % 2])
+    return k, i
+
+
 def sort_pairs(keys: torch.Tensor, ids: torch.Tensor):
     """Stable ascending sort of (key i32, id i32) pairs of any length: one
     histogram, then always four digit passes between two buffer pairs,
@@ -112,15 +165,25 @@ def sort_pairs(keys: torch.Tensor, ids: torch.Tensor):
     :func:`sort_pairs_plain`, which gives the same answer."""
     if _build.on_cpu(keys, ids):
         return sort_pairs_plain(keys, ids)
-    hist = sort_histogram(keys)
-    bufs = [(torch.empty_like(keys), torch.empty_like(ids)) for _ in range(2)]
-    k, i = keys, ids
-    for p, shift in enumerate(SHIFTS):
-        k, i = sort_pass(k, i, shift, hist, out=bufs[p % 2])
-    return k, i
+    return _sort(keys, ids)
+
+
+def sort_rows(keys: torch.Tensor):
+    """(sorted keys, row ids): bitwise ``sort_pairs(keys, arange(n))``,
+    with no arange. On a CPU tensor it is :func:`sort_rows_plain`."""
+    if _build.on_cpu(keys):
+        return sort_rows_plain(keys)
+    return _sort(keys, None)
 
 
 def sort_pairs_plain(keys: torch.Tensor, ids: torch.Tensor):
     """The plain version of :func:`sort_pairs`: torch.sort + gather."""
     sk, order = torch.sort(keys, stable=True)
     return sk, ids[order]
+
+
+def sort_rows_plain(keys: torch.Tensor):
+    """The plain version of :func:`sort_rows`: a stable torch.sort, whose
+    order is the row ids."""
+    sk, order = torch.sort(keys, stable=True)
+    return sk, order.to(torch.int32)

@@ -32,7 +32,7 @@ import torch
 
 from tpujoin_torch import trace
 from tpujoin_torch.kernels.forward_fill import LANES, fill_forward
-from tpujoin_torch.kernels.merge_sort import sort_pairs
+from tpujoin_torch.kernels.merge_sort import sort_rows
 from tpujoin_torch.utils.device import i32_columns
 from tpujoin_torch.utils.shapes import round_up
 
@@ -67,15 +67,13 @@ def _i32_tensor(a, device) -> torch.Tensor:
 
 
 def build(build_keys: torch.Tensor) -> HashJoinTable:
-    """Build phase: one (key, row id) sort; spans ``build``, ``build.ids``
-    and ``build.sort`` under a new join id."""
+    """Build phase: one (key, row id) sort, whose first pass makes the row
+    ids (``sort_rows``); spans ``build`` and ``build.sort`` under a new
+    join id."""
     bk, join = build_keys, trace.new_join()
     with trace.span("build", bk, join):
-        with trace.span("build.ids", bk):
-            ids = torch.arange(bk.shape[0], dtype=torch.int32,
-                               device=bk.device)
         with trace.span("build.sort", bk):
-            sk, sid = sort_pairs(bk, ids)
+            sk, sid = sort_rows(bk)
     return HashJoinTable(sk, sid, join)
 
 

@@ -1,7 +1,8 @@
 """Sort-merge probe pipeline, the v2 engine (the port of
 tpujoin/ops/merge_join.py).
 
-  count:       sort the probe (key, id) pairs (K1) -> merge_count (K2)
+  count:       sort the probe keys with their row ids (K1, whose first
+               pass makes the ids) -> merge_count (K2)
   RLE result:  the rows with matches, compacted (K3, or the identity when
                every probe row matched): (probe id, lo, cnt) per row
   materialize: that compaction -> cumsum -> the path plan_materialize picks
@@ -15,11 +16,11 @@ Results come out in sorted-probe order; the join result is an unordered
 multiset, checked as one by the oracle, so nothing is unsorted.
 
 Spans (tpujoin_torch/trace.py), in the table's join: ``count`` holds
-``count.ids``, ``count.sort`` (K1), ``count.merge`` (K2) and
-``count.totals``, each with device time; ``materialize`` holds one
-``materialize.<path>`` a path tried, which holds ``compact`` (K3 or the
-identity), ``offsets`` (the cumsum), ``group_heads`` (fill and groups) and
-``pairs`` (K4 and the gather, K5 or K7), on the host clock alone: the host
+``count.sort`` (K1), ``count.merge`` (K2) and ``count.totals``, each
+with device time; ``materialize`` holds one ``materialize.<path>`` a
+path tried, which holds ``compact`` (K3 or the identity), ``offsets``
+(the cumsum), ``group_heads`` (fill and groups) and ``pairs`` (K4 and
+the gather, K5 or K7), on the host clock alone: the host
 paces the materialize, so timing events there would add to the device's
 idle time. Every host sync on these paths is a ``sync.<site>`` span: the
 group heads' ``torch.nonzero``, ``bool(fits)`` and each blocking upload of
@@ -44,7 +45,7 @@ from tpujoin_torch.kernels.expand_fill import expand_fill
 from tpujoin_torch.kernels.expand_groups import expand_groups
 from tpujoin_torch.kernels.expand_runs import expand_runs
 from tpujoin_torch.kernels.merge_count import merge_count
-from tpujoin_torch.kernels.merge_sort import sort_pairs
+from tpujoin_torch.kernels.merge_sort import sort_rows
 from tpujoin_torch.ops.hash_join import HashJoinTable, _i32_tensor, build
 from tpujoin_torch.utils.device import i32_columns
 from tpujoin_torch.utils.shapes import round_up
@@ -83,11 +84,8 @@ def probe_count(ht: HashJoinTable, probe_keys: torch.Tensor):
     with at least one match (0-d int64 tensor)."""
     pk = probe_keys
     with trace.span("count", pk, ht.trace_id):
-        with trace.span("count.ids", pk):
-            ids = torch.arange(pk.shape[0], dtype=torch.int32,
-                               device=pk.device)
         with trace.span("count.sort", pk):
-            psk, pid = sort_pairs(pk, ids)
+            psk, pid = sort_rows(pk)
         with trace.span("count.merge", pk):
             lo, cnt = merge_count(ht.sorted_keys, psk)
         with trace.span("count.totals", pk):
