@@ -1,0 +1,9 @@
+"""expand_pairs_ms: the device ms a join spends making the expand path's
+pair columns, the program's span ``pairs`` (K4, the int64 slot arithmetic,
+the gather of the sorted build ids and the two ``torch.where``), over the
+profiled slices' joins."""
+from joinbench import spans
+
+
+def read(r):
+    return spans.per_join(r, lambda s: s["name"] == "pairs", "device_ms")

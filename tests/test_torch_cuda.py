@@ -1377,11 +1377,15 @@ def test_device_spans_nest_and_the_phases_sum_to_their_span():
     by_name = {r[0]: r for r in raw}
     assert len(by_name) == len(raw)           # one join, each name once
     for name, parent, *_, start, end in raw:
-        if parent is None:
+        if parent not in by_name:   # a root, or a host-clock parent
             continue
         p_start, p_end = by_name[parent][5:]
         assert p_start.elapsed_time(start) >= 0, name
         assert end.elapsed_time(p_end) >= 0, name
+    # the expand path's timed phases, one after another on the stream
+    phases = [by_name[n][5:] for n in ("compact", "offsets", "pairs")]
+    for (_, end), (start, _) in zip(phases, phases[1:]):
+        assert end.elapsed_time(start) >= 0
     ms = {r["name"]: r["device_ms"] for r in trace.records()
           if r["device_ms"] is not None}
     for parent in ("build", "count"):
@@ -1391,3 +1395,56 @@ def test_device_spans_nest_and_the_phases_sum_to_their_span():
     assert not [e.name for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and e.name.startswith(trace.PREFIX)]
+
+
+def test_order_key_join_launches_k3_and_k4_once_and_times_them():
+    """A join on joinbench's TPC-H order keys (2^20 orders by 4.2M
+    lineitems, every lineitem matched once) on the card: compact3's count
+    and scatter and K4 launch once a join, on the expand path, and the
+    pairs match the reference; under the profiler the expand path's
+    compact, offsets and pairs and the v1 count's count.search carry device
+    time, and without one nothing records."""
+    from joinbench import compare, harness, reference
+    from tpujoin_torch.ops import merge_join as mj
+    keys = harness.load_module(harness.HERE / "keys" / "tpch_orderkey.py")
+    cfg = {"build_rows": 1 << 20, "probe_rows": 4_200_000}
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    bk, pk = (keys.make(gen, cfg[side], cfg)
+              for side in ("build_rows", "probe_rows"))
+
+    def join():
+        ht = hash_join.build(bk)
+        state, total, nonzero = mj.probe_count(ht, pk)
+        total, nonzero = int(total), int(nonzero)
+        out = mj.plan_materialize(ht, state, round_up(nonzero, 1 << 20),
+                                  round_up(total, 1 << 20), total=total,
+                                  nonzero=nonzero)
+        torch.cuda.synchronize()
+        return total, nonzero, out
+
+    entries = ("tj_compact_count", "tj_compact_cols", "tj_expand")
+    before = [launches[e] for e in entries]
+    total, nonzero, (path, (r_ids, s_ids, _), _) = join()
+    assert [launches[e] - b for e, b in zip(entries, before)] == [1, 1, 1]
+    assert path == "expand" and total == nonzero == cfg["probe_rows"]
+    ref = reference.factorize(bk, pk)
+    assert compare.pair_checks(r_ids, s_ids, total, ref) == {"pairs_off": 0}
+    del r_ids, s_ids, ref
+
+    trace.clear()
+    join()
+    hash_join.probe_count(hash_join.build(bk), pk)
+    assert [r for r in trace.records() if r["kind"] != "setup"] == []
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        join()
+        hash_join.probe_count(hash_join.build(bk), pk)
+        torch.cuda.synchronize()
+    ms = {}
+    for r in trace.records():
+        if r["device_ms"] is not None:
+            ms.setdefault(r["name"], []).append(r["device_ms"])
+    for name in ("compact", "offsets", "pairs", "count.search"):
+        assert len(ms[name]) == 1 and ms[name][0] > 0, (name, ms)
+    assert sum(ms["count"]) >= ms["count.search"][0]

@@ -171,3 +171,62 @@ def test_records_resolve_once_and_read_again():
     with torch.profiler.profile(activities=CPU):
         _join(40)
     assert trace.records() == trace.records()
+
+
+def _given_a_tensor(monkeypatch) -> dict:
+    """Span name -> whether ``ops/`` gave the span a tensor, for device
+    time, the last time it opened one."""
+    seen, real = {}, trace.span
+
+    def span(name, on=None, join=-1):
+        seen[name] = on is not None
+        return real(name, on, join)
+    monkeypatch.setattr(trace, "span", span)
+    return seen
+
+
+COUNT_TIMED = {"build", "build.sort", "count", "count.sort", "count.merge",
+               "count.totals"}
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_the_expand_path_alone_gives_its_phases_device_time(monkeypatch,
+                                                            path):
+    """compact, offsets and pairs take a tensor for their event pair on
+    the expand path, which runs over every matched row, and stay on the
+    host clock on the host-paced paths; without a profiler nothing
+    records."""
+    seen = _given_a_tensor(monkeypatch)
+    trace.clear()
+    assert _join(PATHS[path][0]) == path
+    assert _spans() == []
+    with torch.profiler.profile(activities=CPU):
+        assert _join(PATHS[path][0]) == path
+    timed = {name for name, on in seen.items() if on}
+    assert timed == COUNT_TIMED | (
+        {"compact", "offsets", "pairs"} if path == "expand" else set())
+    assert {"compact", "offsets", "pairs"} <= {r["name"] for r in _spans()}
+
+
+def test_the_v1_count_gives_its_search_device_time(monkeypatch):
+    """v1's probe_count records count > count.search in the table's join,
+    both given a tensor, only under a profiler."""
+    seen = _given_a_tensor(monkeypatch)
+    bk, pk = _keys(10**6)
+    trace.clear()
+    hash_join.probe_count(hash_join.build(bk), pk)
+    assert _spans() == []
+    with torch.profiler.profile(activities=CPU) as prof:
+        ht = hash_join.build(bk)
+        _, counts = hash_join.probe_count(ht, pk)
+    recs = {r["name"]: r for r in _spans()}
+    assert set(recs) == {"build", "build.sort", "count", "count.search"}
+    assert recs["count.search"]["parent"] == "count"
+    assert recs["count"]["parent"] is None
+    assert recs["count"]["join"] == recs["count.search"]["join"] == \
+        ht.trace_id >= 0
+    assert seen["count"] and seen["count.search"]
+    assert trace.PREFIX + "count.search" in {e.name for e in prof.events()}
+    want = torch.searchsorted(ht.sorted_keys, pk, right=True) - \
+        torch.searchsorted(ht.sorted_keys, pk)
+    assert torch.equal(counts, want.int())

@@ -80,11 +80,17 @@ def build(build_keys: torch.Tensor) -> HashJoinTable:
 def probe_count(ht: HashJoinTable, probe_keys: torch.Tensor):
     """Count phase: (lo, counts), each [m] int32 in probe order: the first
     position of the probe key in the sorted build keys and its number of
-    matches. The exact result size is ``counts.sum(dtype=torch.int64)``."""
-    lo = torch.searchsorted(ht.sorted_keys, probe_keys, out_int32=True)
-    hi = torch.searchsorted(ht.sorted_keys, probe_keys, right=True,
-                            out_int32=True)
-    return lo, hi - lo
+    matches. The exact result size is ``counts.sum(dtype=torch.int64)``.
+    Spans ``count`` > ``count.search`` (the two searches), with device
+    time, in the table's join."""
+    pk = probe_keys
+    with trace.span("count", pk, ht.trace_id):
+        with trace.span("count.search", pk):
+            lo = torch.searchsorted(ht.sorted_keys, pk, out_int32=True)
+            hi = torch.searchsorted(ht.sorted_keys, pk, right=True,
+                                    out_int32=True)
+        counts = hi - lo
+    return lo, counts
 
 
 def row_markers(offsets: torch.Tensor, counts: torch.Tensor,

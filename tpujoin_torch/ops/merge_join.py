@@ -20,11 +20,13 @@ Spans (tpujoin_torch/trace.py), in the table's join: ``count`` holds
 with device time; ``materialize`` holds one ``materialize.<path>`` a
 path tried, which holds ``compact`` (K3 or the identity), ``offsets``
 (the cumsum), ``group_heads`` (fill and groups) and ``pairs`` (K4 and
-the gather, K5 or K7), on the host clock alone: the host
-paces the materialize, so timing events there would add to the device's
-idle time. Every host sync on these paths is a ``sync.<site>`` span: the
-group heads' ``torch.nonzero``, ``bool(fits)`` and each blocking upload of
-a host number.
+the gather, K5 or K7). On the expand path, which runs over every matched
+row and at volume paces the device, ``compact``, ``offsets`` and ``pairs``
+have device time too; the other paths' spans are on the host clock alone,
+since the host paces them and timing events there would add to the
+device's idle time. Every host sync on these paths is a ``sync.<site>``
+span: the group heads' ``torch.nonzero``, ``bool(fits)`` and each
+blocking upload of a host number.
 
 The semi, anti and left-outer joins run on the same count state: the
 matched flag scattered into probe-id order, compacted by K6a
@@ -101,21 +103,23 @@ def _fit(col: torch.Tensor, k_cap: int) -> torch.Tensor:
     return torch.cat([col, col.new_zeros(k_cap - col.shape[0])])
 
 
-def _compact(state: SortedProbe, k_cap: int, all_matched: bool = False):
+def _compact(state: SortedProbe, k_cap: int, all_matched: bool = False,
+             timed: bool = False):
     """Compact the count state to the rows with >= 1 match, at width k_cap
     with a zero tail. Returns (lo_c, cnt_c, sid_c, offs_c); offs_c is the
     exclusive cumsum of cnt_c (int32: a result slot is an i32).
     ``all_matched`` asserts nonzero == m (every probe row has a match, as on
     a fully covered key domain): compaction is then the identity and K3
-    does not run."""
-    with trace.span("compact"):
+    does not run. ``timed`` gives the spans device time."""
+    on = state.counts if timed else None
+    with trace.span("compact", on):
         if all_matched:
             lo_c, cnt_c, sid_c = (_fit(c, k_cap) for c in
                                   (state.lo, state.counts, state.probe_ids))
         else:
             lo_c, cnt_c, sid_c = compact3(state.lo, state.counts,
                                           state.probe_ids, k_cap)
-    with trace.span("offsets"):
+    with trace.span("offsets", on):
         offs_c = torch.cumsum(cnt_c, 0, dtype=torch.int32) - cnt_c
     return lo_c, cnt_c, sid_c, offs_c
 
@@ -176,8 +180,8 @@ def probe_materialize(ht: HashJoinTable, state: SortedProbe, k_cap: int,
     s_ids, total, fits), each id column [capacity] int32 with -1 in the
     slots past the total. ``fits`` (0-d bool tensor) is False when either
     capacity is too small; the output is then a truncated multiset."""
-    lo_c, _, sid_c, offs_c = _compact(state, k_cap)
-    with trace.span("pairs"):
+    lo_c, _, sid_c, offs_c = _compact(state, k_cap, timed=True)
+    with trace.span("pairs", offs_c):
         bpos, sid_out = expand(offs_c, lo_c, sid_c, capacity)
         dev = bpos.device
         t = torch.arange(capacity, dtype=torch.int64, device=dev)

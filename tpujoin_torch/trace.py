@@ -15,9 +15,10 @@ attribute read. When on, a span
 - given a CUDA tensor, records a pair of timing events on its device's
   current stream (events are reused from a small pool). Each costs ~8 us
   of host time under the profiler, so ``ops/`` gives a tensor to the
-  spans whose work the device paces (build, count) and none to the
-  host-paced materialize, where the device waits on the host and the
-  events would add to its idle time;
+  spans whose work the device paces (build, count, and the expand path's
+  ``compact``, ``offsets`` and ``pairs``) and none to the host-paced
+  spans of the other materialize paths, where the device waits on the
+  host and the events would add to its idle time;
 - keeps the name of its parent, the span around it, and its join's id:
   the one given, else its parent's. ``ops/hash_join.build`` draws a join's
   id (:func:`new_join`) and keeps it in its table.
