@@ -18,7 +18,9 @@ Phases, one line each (details on stderr):
               timed beside torch.sort(stable=True), and sort_rows, timed
               beside torch.arange and sort_pairs; K2's co-rank pass and count
               kernel, and K4's partition pass and fill kernel, each timed
-              under torch.profiler beside the whole call), K2 on
+              under torch.profiler beside the whole call; K7b, the
+              expand path's pair step, on the same compacted state with
+              the build's sorted ids), K2 on
               zipf_skew's keys (10M x 10M, Zipf(1.0)), then K1 on a ragged
               width with the i32 extremes and a small join checked against
               the native oracle; sort_pairs and sort_rows on
@@ -36,6 +38,14 @@ Phases, one line each (details on stderr):
   4. runs     a 4096 x 4096 join with ~16 matches per row through
               merge_join on the card: the runs path (expand_runs), checked
               against the oracle and the CPU path;
+     pkfk     the expand path's pair step at tpch.pkfk's shape (600,037,902
+              one-slot runs, 1 to 7 an order, so lo ascends, over
+              150,000,000 source ids): K7b on probe_materialize's
+              compacted columns, bitwise equal to expand_runs_plain and
+              to the K4 and glue composition it replaced, timed against
+              its 24 B a slot bound beside the latter, and one
+              probe_materialize call, equal to both,
+              with its tj_expand_runs and tj_expand launches;
   5. k6       K6a compact_ids and K6b compact_cols against their plain
               versions on the filter's and the aggregate's own 100M-row
               inputs, bitwise and timed, with torch.nonzero beside K6a and
@@ -503,7 +513,8 @@ def kernels_phase(dev, cfg, results: dict) -> None:
         f"bound {results['sort_pass_iota']['bound_ms']:.6f} ms (12 B a "
         f"pair)")
     del k, i, hist, passes
-    bsk, _ = check_sort_pairs(bk, ids, "build side", timed=True)
+    # the build's sorted ids: the table's sorted_ids, which K7b gathers
+    bsk, bsid = check_sort_pairs(bk, ids, "build side", timed=True)
     check_sort_rows(bk, "build side", timed=True)
     m = pk.shape[0]
     pids = torch.arange(m, dtype=torch.int32, device=dev)
@@ -536,9 +547,20 @@ def kernels_phase(dev, cfg, results: dict) -> None:
         f"{split['expand_fill_kernel']:.6f} ms (torch.profiler, least of "
         f"5), whole call {results['expand']['ms']:.6f} ms (events); bound "
         f"{results['expand']['bound_ms']:.6f} ms")
+    # K7b, the expand path's pair step since K4 left it, on the same state
+    runs_args = (offs, lo_c, sid_c, bsid, nonzero, total, capacity)
+    got = check_kernel("expand_runs[main path]",
+                       lambda: expand_runs.expand_runs(*runs_args),
+                       lambda: expand_runs.expand_runs_plain(*runs_args),
+                       None)
+    runs_bound_ms = ((12 * nonzero + 4 * total + 8 * capacity)
+                     / hbm_bytes_per_s() * 1e3)
+    say("kernels", f"expand_runs on the main path's state at {capacity} "
+        f"slots: bitwise equal to expand_runs_plain, {got['ms']:.6f} ms; "
+        f"bound {runs_bound_ms:.6f} ms")
     say("kernels", f"main-path widths: {n} x {m} keys, nonzero={nonzero} "
         f"k_cap={k_cap} total={total} capacity={capacity}")
-    del lo_c, cnt_c, sid_c, offs
+    del lo_c, cnt_c, sid_c, offs, bsid, runs_args
 
     # K2 on zipf_skew's keys (10M x 10M, Zipf(1.0) over [1, 1e6])
     bk, pk = bench.config_keys(bench.scaled_config("zipf_skew"), dev)
@@ -847,12 +869,84 @@ def runs_phase(dev, results: dict) -> None:
         f"launch(es)")
 
 
+PKFK_ORDERS = 150_000_000     # TPC-H SF100's orders (PERF.md section 4)
+PKFK_LINEITEMS = 600_037_902  # and its lineitems, one match each
+
+
+def previous_pair_step(offs_c, lo_c, sid_c, src, total: int, cap: int):
+    """The expand path's pair step before K7b: K4's build positions, an
+    int64 slot mask, the clamp and gather of the source ids and two
+    ``where`` (with no host sync)."""
+    bpos, sid_out = expand.expand(offs_c, lo_c, sid_c, cap)
+    valid = torch.arange(cap, dtype=torch.int64, device=offs_c.device) < total
+    bpos = bpos.clamp(0, src.shape[0] - 1).long()
+    return torch.where(valid, src[bpos], -1), torch.where(valid, sid_out, -1)
+
+
+def pkfk_phase(dev) -> None:
+    """The expand path's pair step at tpch.pkfk's shape: every lineitem
+    matches its order, 1 to 7 lineitems an order (the count cut or
+    extended to PKFK_LINEITEMS), the orders' sorted ids a permutation.
+    K7b on the compacted columns against expand_runs_plain and against
+    the composition it replaced, bitwise, and timed beside the latter; its
+    bound counts 24 B a slot (a run's offset, lo and probe id and one
+    source id read, both ids written); then one probe_materialize, equal
+    to both, and its launches."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    n, m = PKFK_ORDERS, PKFK_LINEITEMS
+    per = torch.randint(1, 8, (n,), generator=g, device=dev)
+    lo = torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int32, device=dev), per)
+    lo = torch.cat([lo, lo.new_full((max(m - lo.shape[0], 0),), n - 1)])[:m]
+    del per
+    ht = hj.HashJoinTable(torch.arange(n, dtype=torch.int32, device=dev),
+                          torch.randperm(n, generator=g, device=dev,
+                                         dtype=torch.int32))
+    state = mj.SortedProbe(
+        torch.randperm(m, generator=g, device=dev, dtype=torch.int32), lo,
+        torch.ones(m, dtype=torch.int32, device=dev))
+    k_cap = cap = round_up(m, 1 << 20)
+    lo_c, _, sid_c, offs_c = mj._compact(state, k_cap)
+    src = ht.sorted_ids
+
+    def pairs():
+        return expand_runs.expand_runs(offs_c, lo_c, sid_c, src, m, m, cap)
+
+    def previous():
+        return previous_pair_step(offs_c, lo_c, sid_c, src, m, cap)
+
+    for want, of in ((lambda: expand_runs.expand_runs_plain(
+            offs_c, lo_c, sid_c, src, m, m, cap), "expand_runs_plain"),
+                     (previous, "K4 and its glue")):
+        err = max_abs_err(pairs(), want())
+        torch.cuda.synchronize()
+        if err:
+            raise AssertionError(f"pkfk pair step: K7b differs from {of}, "
+                                 f"max |err| {err}")
+    ms, prev_ms = cuda_ms(pairs, "pkfk pair step"), cuda_ms(
+        previous, "pkfk previous pair step")
+    bound_ms = 24 * m / hbm_bytes_per_s() * 1e3
+    zero_counters()
+    r, s, _, fits = mj.probe_materialize(ht, state, k_cap, cap, total=m,
+                                         nonzero=m)
+    runs_n, k4_n = trace.launches["tj_expand_runs"], trace.launches[
+        "tj_expand"]
+    if not bool(fits) or max_abs_err((r, s), pairs()):
+        raise AssertionError("pkfk: probe_materialize differs from its "
+                             "pair step")
+    say("pkfk", f"{m} one-slot runs over {n} source ids, capacity {cap}: "
+        f"the pair step (K7b) {ms:.6f} ms, bound {bound_ms:.6f} ms at 24 B "
+        f"a slot ({bound_ms / ms:.1%}); K4 and its glue {prev_ms:.6f} ms; "
+        f"bitwise equal to both; probe_materialize equal, {runs_n} tj_expand_runs "
+        f"and {k4_n} tj_expand launch(es) a call")
+
+
 # each matrix entry's kernels, which must launch in its run, and those
 # whose launches go into the kernels line (from the entry that runs them
 # on a reference config)
 MATRIX_PATHS = {
     "ref_low_selectivity": ("sort_histogram", "sort_pass_iota", "sort_pass",
-                            "merge_count", "compact3", "expand"),
+                            "merge_count", "compact3", "expand_runs"),
     "ref_high_selectivity": ("sort_histogram", "sort_pass_iota", "sort_pass",
                              "merge_count", "expand_fill"),
     "ref_low_selectivity[v1]": ("sort_histogram", "sort_pass_iota",
@@ -862,7 +956,7 @@ MATRIX_PATHS = {
     "zipf_skew": ("sort_histogram", "sort_pass_iota", "sort_pass",
                   "merge_count"),
     "multi_join": ("sort_histogram", "sort_pass_iota", "sort_pass",
-                   "merge_count", "compact3", "expand", "compact_ids"),
+                   "merge_count", "compact3", "expand_runs", "compact_ids"),
 }
 MATRIX_RECORD = {"ref_low_selectivity": MATRIX_PATHS["ref_low_selectivity"],
                  "ref_high_selectivity": ("expand_fill",)}
@@ -1090,7 +1184,7 @@ def split_phase(dev, scale: float) -> None:
         raise AssertionError("semi/anti split differs from torch.isin")
     (r, s), outer = _counted(
         lambda: tpujoin_torch.left_outer_join(bk_np, pk_np),
-        ("compact3", "expand", "compact_ids"), "left_outer_join")
+        ("compact3", "expand_runs", "compact_ids"), "left_outer_join")
     inner = r >= 0
     k = int(inner.sum())
     if not (np.array_equal(s[k:], anti) and inner[:k].all()
@@ -1885,7 +1979,7 @@ def dist_nccl_phase(dev, bk, pk, want) -> None:
         + "; group destroyed")
 
 
-def dist_phase(dev, scale: float) -> None:
+def dist_phase(dev, scale: float, results: dict) -> None:
     """The distributed programs (tpujoin_torch.parallel) on the card: a
     DIST_SHARDS-shard in-process mesh (each collective a copy on the card)
     at ref_low_selectivity's full size, plain with auto caps and
@@ -1907,6 +2001,7 @@ def dist_phase(dev, scale: float) -> None:
     for name, kw in (("plain, auto caps", {}),
                      ("pipelined, 2 chunks", {"pipeline_chunks": 2})):
         (r, s), launches = _counted(lambda: plain(**kw), DIST_PATH, name)
+        results["expand"].setdefault("launches", launches["expand"])
         if (len(r), pair_sum(r, s, dev)) != want:
             raise AssertionError(f"{name}: not merge_join's pairs")
         del r, s
@@ -2063,13 +2158,14 @@ def main(argv=None) -> int:
         lambda: kernels_phase(dev, low, results),
         lambda: dense_kernels_phase(dev, high, results),
         lambda: runs_phase(dev, results),
+        lambda: pkfk_phase(dev),
         lambda: k6_phase(dev, results),   # kernel_ms: before the matrix
         lambda: matrix_phase(dev, results, args.scale),
         lambda: v1_phase(dev, results),
         lambda: split_phase(dev, args.scale),
         lambda: tables_phase(dev),
         lambda: ops_phase(dev, results),
-        lambda: dist_phase(dev, args.scale),
+        lambda: dist_phase(dev, args.scale, results),
         lambda: probes_phase(dev, results),
         lambda: variants_phase(dev, results),
         lambda: costs_phase(dev, results),

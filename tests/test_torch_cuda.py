@@ -29,6 +29,8 @@ from tpujoin_torch.probes import (fill_variants, probe_mosaic, probe_mosaic2,
 from tpujoin_torch.trace import launches
 from tpujoin_torch.utils.shapes import round_up
 
+from expand_cases import expand_case, previous_expand_path
+
 pytestmark = pytest.mark.skipif(
     "not torch.cuda.is_available()",
     reason="needs a CUDA device: the kernels have no CPU mode")
@@ -1400,10 +1402,10 @@ def test_device_spans_nest_and_the_phases_sum_to_their_span():
 def test_order_key_join_launches_k3_and_k4_once_and_times_them():
     """A join on joinbench's TPC-H order keys (2^20 orders by 4.2M
     lineitems, every lineitem matched once) on the card: compact3's count
-    and scatter and K4 launch once a join, on the expand path, and the
-    pairs match the reference; under the profiler the expand path's
-    compact, offsets and pairs and the v1 count's count.search carry device
-    time, and without one nothing records."""
+    and scatter and K7b launch once a join, on the expand path, and K4
+    never; the pairs match the reference; under the profiler the expand
+    path's compact, offsets and pairs and the v1 count's count.search carry
+    device time, and without one nothing records."""
     from joinbench import compare, harness, reference
     from tpujoin_torch.ops import merge_join as mj
     keys = harness.load_module(harness.HERE / "keys" / "tpch_orderkey.py")
@@ -1422,10 +1424,11 @@ def test_order_key_join_launches_k3_and_k4_once_and_times_them():
         torch.cuda.synchronize()
         return total, nonzero, out
 
-    entries = ("tj_compact_count", "tj_compact_cols", "tj_expand")
+    entries = ("tj_compact_count", "tj_compact_cols", "tj_expand_runs",
+               "tj_expand")
     before = [launches[e] for e in entries]
     total, nonzero, (path, (r_ids, s_ids, _), _) = join()
-    assert [launches[e] - b for e, b in zip(entries, before)] == [1, 1, 1]
+    assert [launches[e] - b for e, b in zip(entries, before)] == [1, 1, 1, 0]
     assert path == "expand" and total == nonzero == cfg["probe_rows"]
     ref = reference.factorize(bk, pk)
     assert compare.pair_checks(r_ids, s_ids, total, ref) == {"pairs_off": 0}
@@ -1448,3 +1451,33 @@ def test_order_key_join_launches_k3_and_k4_once_and_times_them():
     for name in ("compact", "offsets", "pairs", "count.search"):
         assert len(ms[name]) == 1 and ms[name][0] > 0, (name, ms)
     assert sum(ms["count"]) >= ms["count.search"][0]
+
+
+@pytest.mark.parametrize("caps", ["exact", "tail"])
+@pytest.mark.parametrize("probe_base", [0, 1000])
+@pytest.mark.parametrize("shape", ["one_slot", "dup"])
+def test_expand_path_on_the_card_matches_the_previous_columns(shape,
+                                                               probe_base,
+                                                               caps):
+    """probe_materialize on the card (K3, the cumsum, K7b: one
+    tj_expand_runs launch, no tj_expand) against K4 and its glue on the
+    CPU, bitwise, with the columns and ``fits``."""
+    from tpujoin_torch.ops import merge_join as mj
+    (ht, state), (ht_cpu, state_cpu) = (expand_case(shape, 200_000, dev)
+                                        for dev in ("cuda", "cpu"))
+    cnt = state_cpu.counts
+    total, nonzero = int(cnt.sum()), int((cnt > 0).sum())
+    k_cap, cap = ((nonzero, total) if caps == "exact"
+                  else (nonzero + 37, total + 1000))
+    entries = ("tj_expand_runs", "tj_expand")
+    before = [launches[e] for e in entries]
+    r, s, tot, fits = mj.probe_materialize(ht, state, k_cap, cap,
+                                           probe_base, total=total,
+                                           nonzero=nonzero)
+    torch.cuda.synchronize()
+    assert [launches[e] - b for e, b in zip(entries, before)] == [1, 0]
+    want_r, want_s, want_fits = previous_expand_path(
+        ht_cpu, state_cpu, k_cap, cap, probe_base, total, nonzero)
+    assert r.is_cuda and r.dtype == s.dtype == torch.int32
+    assert torch.equal(r.cpu(), want_r) and torch.equal(s.cpu(), want_s)
+    assert bool(fits) == want_fits and int(tot) == total

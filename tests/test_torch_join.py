@@ -20,6 +20,8 @@ from tpujoin_torch import oracle
 from tpujoin_torch.ops import merge_join as mj
 from tpujoin_torch.ops.hash_join import HashJoinTable, build
 
+from expand_cases import expand_case, previous_expand_path
+
 
 SMALL = tpujoin_torch.PRESETS["test_small"]
 N = 1 << 14
@@ -163,3 +165,23 @@ def test_chunked_merge_join_keeps_to_real_probe_rows(chunk):
     np.testing.assert_array_equal(_pairs(r, s),
                                   _pairs(*np.array(want, np.int32).T))
     assert oracle.check_join(bk, pk, r, s) == 1
+
+
+@pytest.mark.parametrize("caps", ["exact", "tail"])
+@pytest.mark.parametrize("probe_base", [0, 1000])
+@pytest.mark.parametrize("shape", ["one_slot", "dup"])
+def test_expand_path_columns_unchanged(shape, probe_base, caps):
+    """probe_materialize on K7b gives, bit for bit, the pair columns and
+    ``fits`` of K4 and its glue: at the exact capacities, and with pair
+    slots past the total and a zero tail of matched rows."""
+    ht, state = expand_case(shape, 20_000)
+    total, nonzero = int(state.counts.sum()), int((state.counts > 0).sum())
+    k_cap, cap = ((nonzero, total) if caps == "exact"
+                  else (nonzero + 37, total + 1000))
+    r, s, tot, fits = mj.probe_materialize(ht, state, k_cap, cap, probe_base,
+                                           total=total, nonzero=nonzero)
+    want_r, want_s, want_fits = previous_expand_path(
+        ht, state, k_cap, cap, probe_base, total, nonzero)
+    assert r.dtype == s.dtype == torch.int32
+    assert torch.equal(r, want_r) and torch.equal(s, want_s)
+    assert bool(fits) == want_fits and int(tot) == total

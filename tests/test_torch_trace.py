@@ -14,8 +14,7 @@ from tpujoin_torch.utils.shapes import round_up
 CPU = [torch.profiler.ProfilerActivity.CPU]
 
 # path -> (key domain, the sync records of its materialize, in order)
-PATHS = {"expand": (10**6, ["sync.total", "sync.neg", "sync.checked.total",
-                            "sync.checked.nonzero"]),
+PATHS = {"expand": (10**6, ["sync.checked.total", "sync.checked.nonzero"]),
          "runs": (300, ["sync.checked.total", "sync.checked.nonzero",
                         "sync.fits"]),
          "fill": (40, ["sync.group_heads", "sync.checked.total",
@@ -29,8 +28,8 @@ PARENTS = {"build": None, "build.sort": "build",
            "offsets": "materialize.{path}", "pairs": "materialize.{path}",
            "materialize.{path}": "materialize",
            "group_heads": "materialize.{path}",
-           "sync.group_heads": "group_heads", "sync.total": "pairs",
-           "sync.neg": "pairs", "sync.checked.total": "materialize.{path}",
+           "sync.group_heads": "group_heads",
+           "sync.checked.total": "materialize.{path}",
            "sync.checked.nonzero": "materialize.{path}",
            "sync.fits": "materialize.{path}"}
 
@@ -114,6 +113,27 @@ def test_an_upload_of_a_tensor_on_the_device_is_no_sync():
         merge_join._upload(torch.tensor(5), torch.int64, dev, "t")
         merge_join._upload(5, torch.int64, dev, "n")
     assert [r["name"] for r in _spans()] == ["sync.n"]
+
+
+def test_counts_given_as_tensors_are_read_once_each():
+    """probe_materialize given probe_count's 0-d tensors reads each once
+    inside ``pairs`` (sync.total, sync.nonzero), uploads nothing, and
+    returns the columns it gives for the same counts as ints."""
+    bk, pk = _keys(10**6)
+    ht = hash_join.build(bk)
+    state, total, nonzero = merge_join.probe_count(ht, pk)
+    caps = (round_up(int(nonzero), 1024), round_up(int(total), 1024))
+    want = merge_join.probe_materialize(ht, state, *caps, total=int(total),
+                                        nonzero=int(nonzero))
+    trace.clear()
+    with torch.profiler.profile(activities=CPU):
+        got = merge_join.probe_materialize(ht, state, *caps, total=total,
+                                           nonzero=nonzero)
+    syncs = [r for r in _spans() if r["kind"] == "sync"]
+    assert [r["name"] for r in syncs] == ["sync.total", "sync.nonzero"]
+    assert {r["parent"] for r in syncs} == {"pairs"}
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def test_the_record_deque_stays_bounded():

@@ -9,8 +9,8 @@ tpujoin/ops/merge_join.py).
                by duplication:
                  fill    group heads -> expand_fill (K5)
                  groups  group heads -> expand_groups (K7, K5's kernel)
-                 runs    expand_runs (K7)
-                 expand  expand (K4) -> gather of the sorted build ids
+                 runs    expand_runs (K7b)
+                 expand  expand_runs (K7b), its phases on the device clock
 
 Results come out in sorted-probe order; the join result is an unordered
 multiset, checked as one by the oracle, so nothing is unsorted.
@@ -19,14 +19,15 @@ Spans (tpujoin_torch/trace.py), in the table's join: ``count`` holds
 ``count.sort`` (K1), ``count.merge`` (K2) and ``count.totals``, each
 with device time; ``materialize`` holds one ``materialize.<path>`` a
 path tried, which holds ``compact`` (K3 or the identity), ``offsets``
-(the cumsum), ``group_heads`` (fill and groups) and ``pairs`` (K4 and
-the gather, K5 or K7). On the expand path, which runs over every matched
+(the cumsum), ``group_heads`` (fill and groups) and ``pairs`` (K5 or
+K7). On the expand path, which runs over every matched
 row and at volume paces the device, ``compact``, ``offsets`` and ``pairs``
 have device time too; the other paths' spans are on the host clock alone,
 since the host paces them and timing events there would add to the
 device's idle time. Every host sync on these paths is a ``sync.<site>``
-span: the group heads' ``torch.nonzero``, ``bool(fits)`` and each
-blocking upload of a host number.
+span: the group heads' ``torch.nonzero``, ``bool(fits)``, each
+blocking upload of a host number and each read of a count given as a
+tensor.
 
 The semi, anti and left-outer joins run on the same count state: the
 matched flag scattered into probe-id order, compacted by K6a
@@ -42,7 +43,6 @@ import torch
 
 from tpujoin_torch import trace
 from tpujoin_torch.kernels.compact import compact3, compact_ids
-from tpujoin_torch.kernels.expand import expand
 from tpujoin_torch.kernels.expand_fill import expand_fill
 from tpujoin_torch.kernels.expand_groups import expand_groups
 from tpujoin_torch.kernels.expand_runs import expand_runs
@@ -172,41 +172,52 @@ def _checked(r_ids, s_ids, probe_base: int, total, nonzero, k_cap: int,
     return r_ids, s_ids, total, fits
 
 
+def _host_int(x, site: str) -> int:
+    """``x`` as a host int: reading a tensor is a host sync (span
+    ``sync.<site>``), an int costs none."""
+    if isinstance(x, torch.Tensor):
+        with trace.sync(site):
+            return int(x)
+    return int(x)
+
+
+def _materialize_runs(ht: HashJoinTable, state: SortedProbe, k_cap: int,
+                      capacity: int, probe_base: int, total, nonzero,
+                      timed: bool):
+    """K3, the cumsum and K7b: the pair columns straight from the compacted
+    runs. ``timed`` gives the phases device time, the
+    ``pairs`` span on ``offs_c``."""
+    lo_c, _, sid_c, offs_c = _compact(state, k_cap, timed=timed)
+    with trace.span("pairs", offs_c if timed else None):
+        n_total = _host_int(total, "total")
+        n_rows = min(_host_int(nonzero, "nonzero"), k_cap)
+        r_ids, s_ids = expand_runs(offs_c, lo_c, sid_c, ht.sorted_ids,
+                                   n_rows, n_total, capacity)
+    return _checked(r_ids, s_ids, probe_base, total, nonzero, k_cap,
+                    capacity)
+
+
 def probe_materialize(ht: HashJoinTable, state: SortedProbe, k_cap: int,
                       capacity: int, probe_base: int = 0, *, total, nonzero):
-    """Materialize phase on expand (K4) and a gather, at capacities
-    k_cap >= nonzero rows and capacity >= total pairs, where ``total`` and
-    ``nonzero`` are probe_count's (ints or 0-d tensors). Returns (r_ids,
-    s_ids, total, fits), each id column [capacity] int32 with -1 in the
-    slots past the total. ``fits`` (0-d bool tensor) is False when either
-    capacity is too small; the output is then a truncated multiset."""
-    lo_c, _, sid_c, offs_c = _compact(state, k_cap, timed=True)
-    with trace.span("pairs", offs_c):
-        bpos, sid_out = expand(offs_c, lo_c, sid_c, capacity)
-        dev = bpos.device
-        t = torch.arange(capacity, dtype=torch.int64, device=dev)
-        valid = t < _upload(total, torch.int64, dev, "total")
-        bpos = bpos.clamp(0, ht.num_rows - 1).long()
-        with trace.sync("neg"):
-            neg = torch.tensor(-1, dtype=torch.int32, device=dev)
-        r_ids = torch.where(valid, ht.sorted_ids[bpos], neg)
-        s_ids = torch.where(valid, sid_out + probe_base, neg)
-    return _checked(r_ids, s_ids, 0, total, nonzero, k_cap, capacity)
+    """Materialize phase of the expand path, on expand_runs (K7b), at
+    capacities k_cap >= nonzero rows and capacity >= total pairs, where
+    ``total`` and ``nonzero`` are probe_count's (ints, or 0-d tensors read
+    once each). Returns (r_ids, s_ids, total, fits), each id column
+    [capacity] int32 with -1 in the slots past the total. ``fits`` (0-d
+    bool tensor) is False when either capacity is too small; the output is
+    then a truncated multiset. Its phases have device time: at volume this
+    path paces the device."""
+    return _materialize_runs(ht, state, k_cap, capacity, probe_base, total,
+                             nonzero, timed=True)
 
 
 def probe_materialize_runs(ht: HashJoinTable, state: SortedProbe, k_cap: int,
                            capacity: int, probe_base: int = 0, *,
                            total: int, nonzero: int):
-    """Materialize phase on expand_runs (K7): the pair columns straight
-    from the compacted runs, with no build positions in between. Same
-    contract as :func:`probe_materialize`; ``total`` and ``nonzero`` are
-    ints."""
-    lo_c, _, sid_c, offs_c = _compact(state, k_cap)
-    with trace.span("pairs"):
-        r_ids, s_ids = expand_runs(offs_c, lo_c, sid_c, ht.sorted_ids,
-                                   min(nonzero, k_cap), total, capacity)
-    return _checked(r_ids, s_ids, probe_base, total, nonzero, k_cap,
-                    capacity)
+    """Materialize phase of the runs path: :func:`probe_materialize`'s
+    columns, its phases on the host clock alone."""
+    return _materialize_runs(ht, state, k_cap, capacity, probe_base, total,
+                             nonzero, timed=False)
 
 
 def probe_materialize_groups(ht: HashJoinTable, state: SortedProbe,
