@@ -36,8 +36,9 @@ Phases, one line each (details on stderr):
               capacity), and probe_materialize_groups on the dense state,
               which is expand_groups' path;
   4. runs     a 4096 x 4096 join with ~16 matches per row through
-              merge_join on the card: the runs path (expand_runs), checked
-              against the oracle and the CPU path;
+              merge_join on the card: the JAX planner's runs path, here
+              planned as expand (expand_runs), checked against the
+              oracle and the CPU path;
      pkfk     the expand path's pair step at tpch.pkfk's shape (600,037,902
               one-slot runs, 1 to 7 an order, so lo ascends, over
               150,000,000 source ids): K7b on probe_materialize's
@@ -840,9 +841,10 @@ def read_counters() -> dict:
 
 
 def runs_phase(dev, results: dict) -> None:
-    """A join whose duplication (~16 matches per row) lands on the runs
-    path, through merge_join with numpy keys (so on the card by default):
-    the oracle, the CPU path and the expand_runs launches."""
+    """A join at ~16 matches per row (the JAX planner's runs path), which
+    the planner takes as expand, through merge_join with numpy keys (so on
+    the card by default): the oracle, the CPU path and the expand_runs
+    launches."""
     rng = np.random.default_rng(2)
     bk = rng.integers(1, 257, 4096).astype(np.int32)
     pk = rng.integers(1, 257, 4096).astype(np.int32)
@@ -852,8 +854,8 @@ def runs_phase(dev, results: dict) -> None:
     name, _, _ = mj.plan_materialize(ht, state, round_up(nonzero, 1024),
                                      round_up(total, 1024), total=total,
                                      nonzero=nonzero)
-    if name != "runs":
-        raise AssertionError(f"the runs-path join planned {name!r}")
+    if name != "expand":
+        raise AssertionError(f"the ~16-a-row join planned {name!r}")
     zero_counters()
     r, s = merge_join(bk, pk, result_pad_multiple=1024)
     launches = read_counters()["expand_runs"]

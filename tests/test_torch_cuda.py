@@ -404,7 +404,7 @@ def test_merge_join_defaults_to_the_card():
     pk = rng.integers(1, 257, 4096).astype(np.int32)
     before = launches["tj_expand_runs"]
     r, s = tpujoin_torch.merge_join(bk, pk, result_pad_multiple=1024)
-    assert launches["tj_expand_runs"] == before + 1   # ~16 matches/row: runs
+    assert launches["tj_expand_runs"] == before + 1   # ~16 matches/row: expand
     assert oracle.check_join(bk, pk, r, s) == 1
 
 
@@ -1298,18 +1298,19 @@ def test_distributed_join_on_an_nccl_group_of_one():
         np.testing.assert_array_equal(g, w)
 
 
-# the program's spans (tpujoin_torch/trace.py) on the card: materialize
-# path -> (rows a side, key domain)
-TRACED_PATHS = {"expand": (1 << 20, 10**9), "runs": (1 << 16, 4096),
+# the program's spans (tpujoin_torch/trace.py) on the card: case ->
+# (rows a side, key domain); expand.dup16 has ~16 matches a row
+TRACED_PATHS = {"expand": (1 << 20, 10**9), "expand.dup16": (1 << 16, 4096),
                 "groups": (1 << 16, 256), "fill": (1 << 16, 256)}
 
 
 def _traced_join(rows: int, dom: int, path: str, seed: int = 0):
-    """build, probe_count and the materialize of ``path`` on the card, as
-    the benchmark runs them (the count's totals read between), the
-    groups path called directly since the planner takes fill before it.
-    Returns the number of host syncs torch flags in the program's calls
-    (sync debug mode, every warning caught)."""
+    """build, probe_count and the materialize of ``path`` (a case of
+    TRACED_PATHS: the planner's path up to the first dot) on the card, as
+    the benchmark runs them (the count's totals read between), groups
+    called directly since no planner path reaches it. Returns the number
+    of host syncs torch flags in the program's calls (sync debug mode,
+    every warning caught)."""
     import warnings
     gen = torch.Generator(device="cuda").manual_seed(seed)
     bk, pk = (torch.randint(1, dom + 1, (rows,), generator=gen,
@@ -1343,7 +1344,7 @@ def _traced_join(rows: int, dom: int, path: str, seed: int = 0):
     else:
         (name, _, _), n_mat = flagged(lambda: mj.plan_materialize(
             ht, state, *caps, total=total, nonzero=nonzero))
-        assert name == path
+        assert name == path.split(".")[0]
     torch.cuda.synchronize()
     return n_count + n_mat
 

@@ -13,14 +13,14 @@ from tpujoin_torch.utils.shapes import round_up
 
 CPU = [torch.profiler.ProfilerActivity.CPU]
 
-# path -> (key domain, the sync records of its materialize, in order)
-PATHS = {"expand": (10**6, ["sync.checked.total", "sync.checked.nonzero"]),
-         "runs": (300, ["sync.checked.total", "sync.checked.nonzero",
-                        "sync.fits"]),
-         "fill": (40, ["sync.group_heads", "sync.checked.total",
-                       "sync.checked.nonzero", "sync.fits"])}
+EXPAND_SYNCS = ["sync.checked.total", "sync.checked.nonzero"]
+# case -> (key domain, the path the planner takes, the sync records of its
+# materialize, in order); expand.dup10 has ~10 matches a row
+PATHS = {"expand": (10**6, "expand", EXPAND_SYNCS),
+         "expand.dup10": (300, "expand", EXPAND_SYNCS),
+         "fill": (40, "fill", ["sync.group_heads", *EXPAND_SYNCS])}
 
-# each span's parent on a path that takes its first try
+# each span's parent
 PARENTS = {"build": None, "build.sort": "build",
            "count": None, "count.sort": "count",
            "count.merge": "count", "count.totals": "count",
@@ -30,8 +30,7 @@ PARENTS = {"build": None, "build.sort": "build",
            "group_heads": "materialize.{path}",
            "sync.group_heads": "group_heads",
            "sync.checked.total": "materialize.{path}",
-           "sync.checked.nonzero": "materialize.{path}",
-           "sync.fits": "materialize.{path}"}
+           "sync.checked.nonzero": "materialize.{path}"}
 
 
 def _keys(dom: int):
@@ -60,14 +59,14 @@ def test_off_records_nothing_and_spans_are_the_shared_no_op():
     assert _join(40) == "fill"
     assert _spans() == []
     assert trace.span("build") is trace.OFF
-    assert trace.sync("fits") is trace.OFF
+    assert trace.sync("group_heads") is trace.OFF
     assert trace.new_join() == -1
     assert hash_join.build(_keys(40)[0]).trace_id == -1
 
 
-@pytest.mark.parametrize("path", sorted(PATHS))
-def test_a_join_gives_its_span_tree(path):
-    dom, syncs = PATHS[path]
+@pytest.mark.parametrize("case", sorted(PATHS))
+def test_a_join_gives_its_span_tree(case):
+    dom, path, syncs = PATHS[case]
     trace.clear()
     with torch.profiler.profile(activities=CPU) as prof:
         assert _join(dom) == path
@@ -115,25 +114,41 @@ def test_an_upload_of_a_tensor_on_the_device_is_no_sync():
     assert [r["name"] for r in _spans()] == ["sync.n"]
 
 
-def test_counts_given_as_tensors_are_read_once_each():
-    """probe_materialize given probe_count's 0-d tensors reads each once
-    inside ``pairs`` (sync.total, sync.nonzero), uploads nothing, and
-    returns the columns it gives for the same counts as ints."""
-    bk, pk = _keys(10**6)
+@pytest.mark.parametrize("cut", ["capacity", "k_cap"])
+@pytest.mark.parametrize("case", ["expand", "fill"])
+def test_undersized_capacities_run_expand_once(monkeypatch, case, cut):
+    """plan_materialize with the pair or the row capacity one short runs
+    one path, expand, once: one ``materialize.<path>`` span, no
+    ``sync.fits``, one ``fits``, False. With the pairs one short, the
+    slots it writes are distinct pairs of equal keys: a sub-multiset of
+    the join's (truncated rows promise no pairs)."""
+    bk, pk = _keys(PATHS[case][0])
     ht = hash_join.build(bk)
     state, total, nonzero = merge_join.probe_count(ht, pk)
-    caps = (round_up(int(nonzero), 1024), round_up(int(total), 1024))
-    want = merge_join.probe_materialize(ht, state, *caps, total=int(total),
-                                        nonzero=int(nonzero))
+    total, nonzero = int(total), int(nonzero)
+    k_cap, cap = (nonzero, total - 1) if cut == "capacity" else (
+        nonzero - 1, total)
+    checked, real = [], merge_join._checked
+
+    def spy(*args):
+        checked.append(real(*args))
+        return checked[-1]
+    monkeypatch.setattr(merge_join, "_checked", spy)
     trace.clear()
     with torch.profiler.profile(activities=CPU):
-        got = merge_join.probe_materialize(ht, state, *caps, total=total,
-                                           nonzero=nonzero)
-    syncs = [r for r in _spans() if r["kind"] == "sync"]
-    assert [r["name"] for r in syncs] == ["sync.total", "sync.nonzero"]
-    assert {r["parent"] for r in syncs} == {"pairs"}
-    for g, w in zip(got, want, strict=True):
-        assert g.dtype == w.dtype and torch.equal(g, w)
+        name, (r, s, tot), _ = merge_join.plan_materialize(
+            ht, state, k_cap, cap, total=total, nonzero=nonzero)
+    names = [x["name"] for x in _spans()]
+    assert name == "expand" and int(tot) == total
+    assert [n for n in names if n.startswith("materialize.")] == \
+        ["materialize.expand"]
+    assert "sync.fits" not in names
+    assert len(checked) == 1 and not bool(checked[0][3])
+    if cut == "capacity":
+        r, s = r.numpy().astype(np.int64), s.numpy().astype(np.int64)
+        assert len(r) == cap and (r >= 0).all() and (s >= 0).all()
+        assert (bk.numpy()[r] == pk.numpy()[s]).all()
+        assert len(np.unique(r << 32 | s)) == cap
 
 
 def test_the_record_deque_stays_bounded():
@@ -169,8 +184,9 @@ def test_the_table_sums_by_name_and_counts_syncs():
         _join(40)
         _join(40)
     rows = {r["name"]: r for r in trace.table(_spans())}
-    assert rows["build"]["count"] == rows["sync.fits"]["count"] == 2
-    assert rows["materialize.fill"]["syncs"] == 6
+    assert rows["build"]["count"] == rows["sync.group_heads"]["count"] == 2
+    assert "sync.fits" not in rows
+    assert rows["materialize.fill"]["syncs"] == 4
     assert rows["group_heads"]["syncs"] == 2
     assert rows["build"]["syncs"] == rows["count"]["syncs"] == 0
     assert rows["count"]["device_ms"] is None
@@ -209,19 +225,20 @@ COUNT_TIMED = {"build", "build.sort", "count", "count.sort", "count.merge",
                "count.totals"}
 
 
-@pytest.mark.parametrize("path", sorted(PATHS))
+@pytest.mark.parametrize("case", sorted(PATHS))
 def test_the_expand_path_alone_gives_its_phases_device_time(monkeypatch,
-                                                            path):
+                                                            case):
     """compact, offsets and pairs take a tensor for their event pair on
     the expand path, which runs over every matched row, and stay on the
     host clock on the host-paced paths; without a profiler nothing
     records."""
+    dom, path, _ = PATHS[case]
     seen = _given_a_tensor(monkeypatch)
     trace.clear()
-    assert _join(PATHS[path][0]) == path
+    assert _join(dom) == path
     assert _spans() == []
     with torch.profiler.profile(activities=CPU):
-        assert _join(PATHS[path][0]) == path
+        assert _join(dom) == path
     timed = {name for name, on in seen.items() if on}
     assert timed == COUNT_TIMED | (
         {"compact", "offsets", "pairs"} if path == "expand" else set())

@@ -53,8 +53,9 @@ from tpujoin_torch.ops import filter as flt
 from tpujoin_torch.ops import hash_join as hj
 from tpujoin_torch.ops import multi_join as mjn
 from tpujoin_torch.ops.hash_join import build
-from tpujoin_torch.ops.merge_join import (plan_materialize, probe_count,
-                                          probe_materialize, probe_rle)
+from tpujoin_torch.ops.merge_join import (capacities, plan_materialize,
+                                          probe_count, probe_materialize,
+                                          probe_rle)
 from tpujoin_torch.ops.sort import sort_with_ids
 from tpujoin_torch.utils import verify as vf
 from tpujoin_torch.utils.hw import hbm_peak_gbps
@@ -409,15 +410,14 @@ def bench_join(cfg: JoinConfig, verify: bool, engine: str = "v2",
                              name="count", rows=cfg.probe_rows,
                              bytes_touched=(cfg.build_rows
                                             + cfg.probe_rows * 3) * 4)
-        state, total_t, nonzero_t = probe_count(ht, pk)
-        total, nonzero = int(total_t), int(nonzero_t)
-        cap = round_up(total, cfg.result_pad_multiple)
-        k_cap = round_up(nonzero, max(cfg.result_pad_multiple // 8, 1024))
+        state, total, nonzero = probe_count(ht, pk)
+        total, nonzero = int(total), int(nonzero)
+        k_cap, cap = capacities(total, nonzero, cfg.result_pad_multiple)
         mat_bytes = cfg.probe_rows * 12 + cap * 8 * 2
 
         def materialize():
-            return probe_materialize(ht, state, k_cap, cap, total=total_t,
-                                     nonzero=nonzero_t)
+            return probe_materialize(ht, state, k_cap, cap, total=total,
+                                     nonzero=nonzero)
     mat_stat = time_fn(materialize, device=device, name="materialize",
                        rows=total, bytes_touched=mat_bytes)
     for st in (build_stat, count_stat, mat_stat):

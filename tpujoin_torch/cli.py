@@ -89,9 +89,9 @@ def cmd_join(args, variant: str) -> int:
         total, nonzero = int(total), int(nonzero)
         print(f"result rows: {total}", flush=True)
         r_ids, s_ids, _, fits = _timed("probe", dev, lambda: (
-            mj.probe_materialize(ht, state, round_up(nonzero, 1 << 17),
-                                 round_up(total, 1 << 20), total=total,
-                                 nonzero=nonzero)))
+            mj.probe_materialize(ht, state,
+                                 *mj.capacities(total, nonzero, 1 << 20),
+                                 total=total, nonzero=nonzero)))
     else:
         lo, counts = _timed("count", dev, lambda: hj.probe_count(ht, pk))
         total = int(counts.sum(dtype=torch.int64))

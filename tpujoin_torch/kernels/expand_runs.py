@@ -1,4 +1,4 @@
-"""Run expansion: K7 (csrc/expand_pairs.cu), the runs path's pair step.
+"""Run expansion: K7b (csrc/expand_pairs.cu), the expand path's pair step.
 
 The port of tpujoin/kernels/expand_runs.py: for each output slot t below
 the total, its compacted run r (offsets[r] <= t < offsets[r + 1]) gives the

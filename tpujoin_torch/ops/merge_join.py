@@ -6,28 +6,26 @@ tpujoin/ops/merge_join.py).
   RLE result:  the rows with matches, compacted (K3, or the identity when
                every probe row matched): (probe id, lo, cnt) per row
   materialize: that compaction -> cumsum -> the path plan_materialize picks
-               by duplication:
+               from its ints, by duplication:
                  fill    group heads -> expand_fill (K5)
-                 groups  group heads -> expand_groups (K7, K5's kernel)
-                 runs    expand_runs (K7b)
                  expand  expand_runs (K7b), its phases on the device clock
+               probe_materialize_groups (K7, K5's kernel on the group
+               heads) is an entry of its own, outside the planner.
 
 Results come out in sorted-probe order; the join result is an unordered
 multiset, checked as one by the oracle, so nothing is unsorted.
 
 Spans (tpujoin_torch/trace.py), in the table's join: ``count`` holds
 ``count.sort`` (K1), ``count.merge`` (K2) and ``count.totals``, each
-with device time; ``materialize`` holds one ``materialize.<path>`` a
-path tried, which holds ``compact`` (K3 or the identity), ``offsets``
-(the cumsum), ``group_heads`` (fill and groups) and ``pairs`` (K5 or
-K7). On the expand path, which runs over every matched
-row and at volume paces the device, ``compact``, ``offsets`` and ``pairs``
-have device time too; the other paths' spans are on the host clock alone,
-since the host paces them and timing events there would add to the
-device's idle time. Every host sync on these paths is a ``sync.<site>``
-span: the group heads' ``torch.nonzero``, ``bool(fits)``, each
-blocking upload of a host number and each read of a count given as a
-tensor.
+with device time; ``materialize`` holds ``materialize.<path>``, the path
+taken, which holds ``compact`` (K3 or the identity), ``offsets`` (the
+cumsum), ``group_heads`` (fill) and ``pairs`` (K5 or K7b). On the expand
+path, which runs over every matched row and at volume paces the device,
+``compact``, ``offsets`` and ``pairs`` have device time too; fill's
+spans are on the host clock alone, since the host paces it and timing
+events there would add to the device's idle time. Every host sync on
+these paths is a ``sync.<site>`` span: the group heads'
+``torch.nonzero`` and each blocking upload of a host number.
 
 The semi, anti and left-outer joins run on the same count state: the
 matched flag scattered into probe-id order, compacted by K6a
@@ -37,6 +35,7 @@ the unmatched probe ids, each ascending, with no sort.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -54,12 +53,9 @@ from tpujoin_torch.utils.shapes import round_up
 
 INT32_MAX = 0x7FFFFFFF
 
-# Average matches per probe row from which plan_materialize tries the runs
-# path, and the group paths (fill, then groups). The JAX planner's
-# thresholds, kept with its order; they were tuned for that package's
-# kernels. On Hopper every path fits, and tuning these for the card is
-# later work.
-RUNS_MIN_DUP = 8
+# Average matches per probe row from which plan_materialize takes the
+# fill path (K5 on the group heads) when the capacities fit; below it, or
+# when they do not, the expand path (K7b). The JAX planner's threshold.
 GROUPS_MIN_DUP = 35
 
 
@@ -172,52 +168,23 @@ def _checked(r_ids, s_ids, probe_base: int, total, nonzero, k_cap: int,
     return r_ids, s_ids, total, fits
 
 
-def _host_int(x, site: str) -> int:
-    """``x`` as a host int: reading a tensor is a host sync (span
-    ``sync.<site>``), an int costs none."""
-    if isinstance(x, torch.Tensor):
-        with trace.sync(site):
-            return int(x)
-    return int(x)
-
-
-def _materialize_runs(ht: HashJoinTable, state: SortedProbe, k_cap: int,
-                      capacity: int, probe_base: int, total, nonzero,
-                      timed: bool):
-    """K3, the cumsum and K7b: the pair columns straight from the compacted
-    runs. ``timed`` gives the phases device time, the
-    ``pairs`` span on ``offs_c``."""
-    lo_c, _, sid_c, offs_c = _compact(state, k_cap, timed=timed)
-    with trace.span("pairs", offs_c if timed else None):
-        n_total = _host_int(total, "total")
-        n_rows = min(_host_int(nonzero, "nonzero"), k_cap)
+def probe_materialize(ht: HashJoinTable, state: SortedProbe, k_cap: int,
+                      capacity: int, probe_base: int = 0, *, total: int,
+                      nonzero: int):
+    """Materialize phase of the expand path: K3, the cumsum and
+    expand_runs (K7b), the pair columns straight from the compacted runs,
+    at capacities k_cap >= nonzero rows and capacity >= total pairs, where
+    ``total`` and ``nonzero`` are probe_count's, as ints. Returns (r_ids,
+    s_ids, total, fits), each id column [capacity] int32 with -1 in the
+    slots past the total. ``fits`` (0-d bool tensor) is False when either
+    capacity is too small; the output is then a truncated multiset. Its
+    phases have device time: at volume this path paces the device."""
+    lo_c, _, sid_c, offs_c = _compact(state, k_cap, timed=True)
+    with trace.span("pairs", offs_c):
         r_ids, s_ids = expand_runs(offs_c, lo_c, sid_c, ht.sorted_ids,
-                                   n_rows, n_total, capacity)
+                                   min(nonzero, k_cap), total, capacity)
     return _checked(r_ids, s_ids, probe_base, total, nonzero, k_cap,
                     capacity)
-
-
-def probe_materialize(ht: HashJoinTable, state: SortedProbe, k_cap: int,
-                      capacity: int, probe_base: int = 0, *, total, nonzero):
-    """Materialize phase of the expand path, on expand_runs (K7b), at
-    capacities k_cap >= nonzero rows and capacity >= total pairs, where
-    ``total`` and ``nonzero`` are probe_count's (ints, or 0-d tensors read
-    once each). Returns (r_ids, s_ids, total, fits), each id column
-    [capacity] int32 with -1 in the slots past the total. ``fits`` (0-d
-    bool tensor) is False when either capacity is too small; the output is
-    then a truncated multiset. Its phases have device time: at volume this
-    path paces the device."""
-    return _materialize_runs(ht, state, k_cap, capacity, probe_base, total,
-                             nonzero, timed=True)
-
-
-def probe_materialize_runs(ht: HashJoinTable, state: SortedProbe, k_cap: int,
-                           capacity: int, probe_base: int = 0, *,
-                           total: int, nonzero: int):
-    """Materialize phase of the runs path: :func:`probe_materialize`'s
-    columns, its phases on the host clock alone."""
-    return _materialize_runs(ht, state, k_cap, capacity, probe_base, total,
-                             nonzero, timed=False)
 
 
 def probe_materialize_groups(ht: HashJoinTable, state: SortedProbe,
@@ -225,8 +192,8 @@ def probe_materialize_groups(ht: HashJoinTable, state: SortedProbe,
                              *, total: int, nonzero: int):
     """Materialize phase on expand_groups (K7): the group heads of the
     compacted runs, then one periodic slice of the sorted build ids per
-    group. Same contract as :func:`probe_materialize`; ``total`` and
-    ``nonzero`` are ints."""
+    group. Same contract as :func:`probe_materialize`. No planner path
+    reaches it: it is K7's op, called directly."""
     lo_c, cnt_c, sid_c, offs_c = _compact(state, k_cap)
     goff, glo, gnb, ngroups = _group_heads(lo_c, cnt_c, offs_c, k_cap,
                                            nonzero)
@@ -246,8 +213,7 @@ def probe_materialize_fill(ht: HashJoinTable, state: SortedProbe, k_cap: int,
     joins: the group heads of the compacted runs, then each slot's pair
     from its run's probe id and its group's periodic build slice.
     ``all_matched`` asserts nonzero == m and skips compaction (see
-    :func:`_compact`). Same contract as :func:`probe_materialize`;
-    ``total`` and ``nonzero`` are ints."""
+    :func:`_compact`). Same contract as :func:`probe_materialize`."""
     lo_c, cnt_c, sid_c, offs_c = _compact(state, k_cap, all_matched)
     goff, glo, gnb, ngroups = _group_heads(lo_c, cnt_c, offs_c, k_cap,
                                            nonzero)
@@ -341,8 +307,7 @@ def left_outer_join(build_keys, probe_keys, *,
     unmatched = part[nonzero:].cpu().numpy()
     r_inner = s_inner = np.empty(0, np.int32)
     if total:
-        cap = round_up(total, result_pad_multiple)
-        k_cap = round_up(nonzero, max(result_pad_multiple // 8, 1024))
+        k_cap, cap = capacities(total, nonzero, result_pad_multiple)
         r_ids, s_ids, _, fits = probe_materialize(
             ht, state, k_cap, cap, total=total, nonzero=nonzero)
         if not bool(fits):
@@ -353,47 +318,40 @@ def left_outer_join(build_keys, probe_keys, *,
             np.concatenate([s_inner, unmatched]))
 
 
+def capacities(total: int, nonzero: int,
+               result_pad_multiple: int) -> tuple[int, int]:
+    """(k_cap, capacity) of a join with ``total`` pairs over ``nonzero``
+    matched probe rows: the rows rounded up to max(pad // 8, 1024) and the
+    pairs to the pad, so plan_materialize's ``fits`` holds."""
+    return (round_up(nonzero, max(result_pad_multiple // 8, 1024)),
+            round_up(total, result_pad_multiple))
+
+
 def plan_materialize(ht: HashJoinTable, state: SortedProbe, k_cap: int,
                      capacity: int, *, total: int, nonzero: int,
                      probe_base: int = 0):
     """The materialize path for this workload, as (name, results, replay):
     ``results`` is the path's (r_ids, s_ids, total) already computed and
-    ``replay()`` runs the same call again. Paths are tried in the JAX
-    planner's order, by average matches per row: fill, then groups, from
-    GROUPS_MIN_DUP; runs from RUNS_MIN_DUP; else expand. A path is taken
-    when its ``fits`` holds; the Hopper kernels have no envelope, so only
-    an undersized capacity fails one, and expand is taken whatever its
-    ``fits``. Spans ``materialize`` and, a path tried,
-    ``materialize.<path>``, in the table's join."""
-    all_matched = nonzero == state.counts.shape[0]
-    paths = []
-    if total >= nonzero * GROUPS_MIN_DUP:
-        paths += [("fill", probe_materialize_fill,
-                   {"all_matched": all_matched}),
-                  ("groups", probe_materialize_groups, {})]
-    if total >= nonzero * RUNS_MIN_DUP:
-        paths.append(("runs", probe_materialize_runs, {}))
-    paths.append(("expand", probe_materialize, {}))
+    ``replay()`` runs the same call again. One decision on the host ints:
+    fill from GROUPS_MIN_DUP average matches a row when both capacities
+    fit, else expand, whose ``fits`` is then False when they do not. Spans
+    ``materialize`` and, within it, ``materialize.<path>``, in the table's
+    join."""
+    fits = total <= capacity and nonzero <= k_cap
+    if fits and total >= nonzero * GROUPS_MIN_DUP:
+        name, fn = "fill", functools.partial(
+            probe_materialize_fill,
+            all_matched=nonzero == state.counts.shape[0])
+    else:
+        name, fn = "expand", probe_materialize
+
+    def replay():
+        return fn(ht, state, k_cap, capacity, probe_base, total=total,
+                  nonzero=nonzero)[:3]
 
     with trace.span("materialize", join=ht.trace_id):
-        for name, fn, kw in paths:
-            def replay(fn=fn, kw=kw):
-                return fn(ht, state, k_cap, capacity, probe_base,
-                          total=total, nonzero=nonzero, **kw)[:3]
-
-            with trace.span("materialize." + name):
-                r_ids, s_ids, tot, fits = fn(ht, state, k_cap, capacity,
-                                             probe_base, total=total,
-                                             nonzero=nonzero, **kw)
-                taken = name == "expand"
-                if not taken:
-                    with trace.sync("fits"):
-                        taken = bool(fits)
-            if taken:
-                return name, (r_ids, s_ids, tot), replay
-            # free this try's full-capacity columns before the next
-            # allocates
-            del r_ids, s_ids, tot, fits
+        with trace.span("materialize." + name):
+            return name, replay(), replay
 
 
 def merge_join(build_keys, probe_keys, *,
@@ -417,8 +375,7 @@ def merge_join(build_keys, probe_keys, *,
         total, nonzero = int(total), int(nonzero)
         if total == 0:
             continue
-        cap = round_up(total, result_pad_multiple)
-        k_cap = round_up(nonzero, max(result_pad_multiple // 8, 1024))
+        k_cap, cap = capacities(total, nonzero, result_pad_multiple)
         _, (r_ids, s_ids, _), _ = plan_materialize(
             ht, state, k_cap, cap, total=total, nonzero=nonzero,
             probe_base=start)

@@ -107,8 +107,7 @@ def _join_candidates(hk_r: torch.Tensor, hk_s: torch.Tensor,
     total, nonzero = int(total), int(nonzero)
     if total == 0:
         return None
-    cap = round_up(total, result_pad_multiple)
-    k_cap = round_up(nonzero, max(result_pad_multiple // 8, 1024))
+    k_cap, cap = mj.capacities(total, nonzero, result_pad_multiple)
     _, (cand_r, cand_s, _), _ = mj.plan_materialize(
         ht, state, k_cap, cap, total=total, nonzero=nonzero)
     return cand_r, cand_s, cap

@@ -3,7 +3,7 @@
 The port of exp/bench_mat2.py. At the ``ref_high_selectivity`` scale
 (10M x 10M keys in 1..100,000, ~1e9 pairs; N = 2^30 rows) it measures:
 
-  runs     probe_materialize_runs (expand_runs) on that join's count state
+  runs     probe_materialize (expand_runs) on that join's count state
   groups   probe_materialize_groups (expand_groups) on the same state
   scatter  10M sorted positions into a zeroed N-row column
   cumsum   torch.cumsum over N i32
@@ -90,7 +90,7 @@ def main(argv=None) -> int:
     which = set(args.which) or set(MEASUREMENTS)
     n = args.n
 
-    for path, materialize in (("runs", mj.probe_materialize_runs),
+    for path, materialize in (("runs", mj.probe_materialize),
                               ("groups", mj.probe_materialize_groups)):
         if path not in which:
             continue

@@ -51,7 +51,8 @@ from tpujoin_torch.ops import hash_join as hj
 from tpujoin_torch.ops.multi_join import hash_join_multi
 from tpujoin_torch.ops.filter import filter_device
 from tpujoin_torch.ops.hash_join import build
-from tpujoin_torch.ops.merge_join import plan_materialize, probe_count
+from tpujoin_torch.ops.merge_join import (capacities, plan_materialize,
+                                          probe_count)
 from tpujoin_torch.utils.shapes import round_up
 
 
@@ -78,9 +79,9 @@ def join_once(cfg: JoinConfig, bk: torch.Tensor, pk: torch.Tensor,
         return hj.probe_materialize(ht, lo, counts, cap)
     state, total, nonzero = probe_count(ht, pk)
     total, nonzero = int(total), int(nonzero)
-    cap = round_up(total, cfg.result_pad_multiple)
-    k_cap = round_up(nonzero, 1 << 20 if cfg.expected_matches > DENSE_MATCHES
-                     else max(cfg.result_pad_multiple // 8, 1024))
+    k_cap, cap = capacities(total, nonzero, cfg.result_pad_multiple)
+    if cfg.expected_matches > DENSE_MATCHES:
+        k_cap = round_up(nonzero, 1 << 20)
     return plan_materialize(ht, state, k_cap, cap, total=total,
                             nonzero=nonzero)[1]
 
