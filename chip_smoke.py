@@ -20,8 +20,14 @@ Phases, one line each (details on stderr):
               kernel, and K4's partition pass and fill kernel, each timed
               under torch.profiler beside the whole call; K7b, the
               expand path's pair step, on the same compacted state with
-              the build's sorted ids), K2 on
-              zipf_skew's keys (10M x 10M, Zipf(1.0)), then K1 on a ragged
+              the build's sorted ids; v1's count, the equal-range search
+              of the unsorted probe keys in the sorted build keys, against
+              its plain version and bitwise the two torch.searchsorted it
+              replaced, timed beside them, its directory apart, against
+              16 B a probe row and 4 B a build key, with its largest
+              bucket), K2 and the equal-range search on
+              zipf_skew's keys (10M x 10M, Zipf(1.0); the search's largest
+              bucket on that skewed build side), then K1 on a ragged
               width with the i32 extremes and a small join checked against
               the native oracle; sort_pairs and sort_rows on
               ref_high_selectivity's build keys, sort_pairs timed beside
@@ -192,9 +198,9 @@ from tpujoin_torch.kernels import (_build, carry_scan, compact, expand,
                                    expand_fill, expand_groups, expand_runs,
                                    fill_phases, flat_roll, forward_fill,
                                    merge_count, merge_sort, mosaic, mosaic2,
-                                   mosaic3, op_chain, runs_phases,
-                                   select_chain, shift_loop, slab_count,
-                                   smem_gather, stream)
+                                   mosaic3, op_chain, range_search,
+                                   runs_phases, select_chain, shift_loop,
+                                   slab_count, smem_gather, stream)
 from tpujoin_torch.ops import aggregate as agg
 from tpujoin_torch.ops import hash_join as hj
 from tpujoin_torch.ops import merge_join as mj
@@ -518,6 +524,7 @@ def kernels_phase(dev, cfg, results: dict) -> None:
     bsk, bsid = check_sort_pairs(bk, ids, "build side", timed=True)
     check_sort_rows(bk, "build side", timed=True)
     m = pk.shape[0]
+    check_range_search(bsk, pk, cfg.name, results)
     pids = torch.arange(m, dtype=torch.int32, device=dev)
     psk, psid = check_sort_pairs(pk, pids, "probe side")
     del bk, pk, ids, pids
@@ -565,8 +572,10 @@ def kernels_phase(dev, cfg, results: dict) -> None:
 
     # K2 on zipf_skew's keys (10M x 10M, Zipf(1.0) over [1, 1e6])
     bk, pk = bench.config_keys(bench.scaled_config("zipf_skew"), dev)
-    check_count(torch.sort(bk).values, torch.sort(pk).values, "zipf_skew")
-    del bk, pk
+    bsk = torch.sort(bk).values
+    check_count(bsk, torch.sort(pk).values, "zipf_skew")
+    check_range_search(bsk, pk, "zipf_skew")
+    del bk, pk, bsk
 
     # K1 at a ragged width with the i32 extremes present
     gen = torch.Generator(device=dev)
@@ -635,10 +644,44 @@ def check_count(bsk, psk, what: str, results: dict | None = None) -> None:
         f"5), whole call {got['ms']:.6f} ms (events); bound {floor:.6f} ms")
 
 
+def check_range_search(bsk, pk, what: str, results: dict | None = None
+                       ) -> None:
+    """v1's count on the card (kernels/range_search.py: the directory, then
+    the search) on sorted build keys and unsorted probe keys, bitwise its
+    plain version and v1_count, the two torch.searchsorted it replaced;
+    with ``results``, all three timed, the directory apart, and the
+    kernels line's entry. Says the largest bucket."""
+    n, m = bsk.shape[0], pk.shape[0]
+    name = "range_search" if results is not None else f"range_search[{what}]"
+    got = check_kernel(
+        name, lambda: range_search.equal_range(bsk, pk),
+        lambda: range_search.search_count_plain(
+            bsk, pk, *range_search.directory_plain(bsk)), results)
+    lo_cnt = range_search.equal_range(bsk, pk)
+    if max_abs_err(lo_cnt, v1_count(bsk, pk)):
+        raise AssertionError(f"{name} differs from two torch.searchsorted")
+    del lo_cnt
+    params = range_search.directory(bsk)[1].tolist()
+    line = (f"{name} {n} x {m}: exact, bitwise two torch.searchsorted; "
+            f"{got['ms']:.6f} ms; largest bucket {params[2]} rows (2^"
+            f"{range_search.bucket_bits(n)} buckets of 2^{params[1]} keys)")
+    if results is not None:
+        bound(results, name, 16 * m + 4 * n, n + m)
+        results[name]["library_ms"] = cuda_ms(lambda: v1_count(bsk, pk),
+                                              "two torch.searchsorted")
+        dir_ms = cuda_ms(lambda: range_search.directory(bsk), "directory")
+        line += (f", directory {dir_ms:.6f} ms of it; two torch.searchsorted "
+                 f"{results[name]['library_ms']:.6f} ms; bound "
+                 f"{results[name]['bound_ms']:.6f} ms (16 B a probe row, "
+                 f"4 B a build key)")
+    say("kernels", line)
+
+
 def v1_count(bsk, psk):
     """(lo, cnt) of the probe keys in the sorted build keys by two
-    torch.searchsorted, the v1 engine's count (tpujoin_torch/ops/
-    hash_join.py:probe_count): merge_count's library call."""
+    torch.searchsorted, the v1 engine's count before the equal-range
+    search (its CPU path still): the library call of merge_count and
+    range_search."""
     lo = torch.searchsorted(bsk, psk, out_int32=True)
     return lo, torch.searchsorted(bsk, psk, right=True, out_int32=True) - lo
 
@@ -808,6 +851,8 @@ COUNTERS = {"sort_histogram": "tj_sort_histogram",
             "sort_pass": "tj_sort_pass",
             "sort_pass_iota": "tj_sort_pass_iota",
             "merge_count": "tj_merge_count",
+            "range_search": "tj_search_count",
+            "search_dir": "tj_search_dir",
             "compact3": "tj_compact_cols",
             "expand": "tj_expand",
             "expand_fill": "tj_expand_fill",
@@ -952,16 +997,18 @@ MATRIX_PATHS = {
     "ref_high_selectivity": ("sort_histogram", "sort_pass_iota", "sort_pass",
                              "merge_count", "expand_fill"),
     "ref_low_selectivity[v1]": ("sort_histogram", "sort_pass_iota",
-                                "sort_pass"),
+                                "sort_pass", "search_dir", "range_search"),
     "ref_high_selectivity[v1-rle]": ("sort_histogram", "sort_pass_iota",
-                                     "sort_pass"),
+                                     "sort_pass", "search_dir",
+                                     "range_search"),
     "zipf_skew": ("sort_histogram", "sort_pass_iota", "sort_pass",
                   "merge_count"),
     "multi_join": ("sort_histogram", "sort_pass_iota", "sort_pass",
                    "merge_count", "compact3", "expand_runs", "compact_ids"),
 }
 MATRIX_RECORD = {"ref_low_selectivity": MATRIX_PATHS["ref_low_selectivity"],
-                 "ref_high_selectivity": ("expand_fill",)}
+                 "ref_high_selectivity": ("expand_fill",),
+                 "ref_low_selectivity[v1]": ("range_search",)}
 
 
 def matrix_phase(dev, results: dict, scale: float) -> None:
@@ -1098,7 +1145,8 @@ def v1_phase(dev, results: dict) -> None:
     pk = rng.integers(1, V1_KEYS + 1, V1_ROWS).astype(np.int32)
     (r, s), launches = _counted(lambda: tpujoin_torch.hash_join(bk, pk),
                                 ("sort_histogram", "sort_pass_iota",
-                                 "sort_pass", "fill_forward"), "hash_join")
+                                 "sort_pass", "search_dir", "range_search",
+                                 "fill_forward"), "hash_join")
     r_cpu, s_cpu = tpujoin_torch.hash_join(bk, pk, device="cpu")
     if oracle.check_join(bk, pk, r, s) != 1 or not same_pairs(r, s, r_cpu,
                                                               s_cpu):
@@ -1124,8 +1172,8 @@ def v1_phase(dev, results: dict) -> None:
     t0 = time.perf_counter()
     out, launches = _counted(
         lambda: bench.bench_join(cfg, True, "v1", dev),
-        ("sort_histogram", "sort_pass_iota", "sort_pass", "fill_forward"),
-        "the v1 dense cell")
+        ("sort_histogram", "sort_pass_iota", "sort_pass", "search_dir",
+         "range_search", "fill_forward"), "the v1 dense cell")
     print(json.dumps(out), flush=True)
     if out["verified"] is not True or out["rle_verified"] is not True:
         raise AssertionError("v1 dense cell fails its check")
@@ -2107,6 +2155,9 @@ def main(argv=None) -> int:
         "merge_count": {"source": src + "merge_count.cu",
                         "replaces": "tpujoin/kernels/merge_count.py:201, "
                                     "tpujoin/kernels/merge_count.py:218"},
+        "range_search": {"source": src + "range_search.cu",
+                         "replaces": "none: v1's count, XLA's searchsorted "
+                                     "in tpujoin/ops/hash_join.py"},
         "compact3": {"source": src + "compact.cu",
                      "replaces": "tpujoin/kernels/compact.py:217"},
         "expand": {"source": src + "expand_pairs.cu",

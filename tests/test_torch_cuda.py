@@ -21,15 +21,16 @@ from tpujoin_torch.kernels import (carry_scan, compact, expand, expand_fill,
                                    expand_groups, expand_runs, fill_phases,
                                    flat_roll, forward_fill, merge_count,
                                    merge_sort, mosaic, mosaic2, mosaic3,
-                                   op_chain, runs_phases, select_chain,
-                                   shift_loop, slab_count, smem_gather,
-                                   stream)
+                                   op_chain, range_search, runs_phases,
+                                   select_chain, shift_loop, slab_count,
+                                   smem_gather, stream)
 from tpujoin_torch.probes import (fill_variants, probe_mosaic, probe_mosaic2,
                                   probe_mosaic3, profile_expand_runs)
 from tpujoin_torch.trace import launches
 from tpujoin_torch.utils.shapes import round_up
 
 from expand_cases import expand_case, previous_expand_path
+from range_cases import CASES as RANGE_CASES, range_case, two_searchsorted
 
 pytestmark = pytest.mark.skipif(
     "not torch.cuda.is_available()",
@@ -1173,6 +1174,105 @@ def test_v1_dense_materialize_on_card_matches_cpu(n, m, dom, pad):
     mark = hash_join.row_markers(offsets, counts, len(r) + 17)
     _equal((forward_fill.fill_forward(mark, hash_join.FILL_STEP),),
            (forward_fill.fill_forward_plain(mark, hash_join.FILL_STEP),))
+
+
+def _range_search_equal(keys, probe):
+    """The directory kernel bitwise directory_plain, and the search kernel
+    bitwise two torch.searchsorted and search_count_plain."""
+    dir_, params = range_search.directory(keys)
+    _equal((dir_, params), range_search.directory_plain(keys))
+    got = range_search.search_count(keys, probe, dir_, params)
+    _equal(got, two_searchsorted(keys, probe))
+    _equal(got, range_search.search_count_plain(keys, probe, dir_, params))
+    return params
+
+
+@pytest.mark.parametrize("case", RANGE_CASES)
+def test_range_search_kernels(case):
+    """Uniform, narrow (shift 0), duplicated, one-key, outlier, negative
+    and i32-extreme build keys, n = 1, n = 0 and m = 0; probe keys matched,
+    unmatched, below the smallest and above the largest build key."""
+    _range_search_equal(*range_case(case, "cuda"))
+
+
+@pytest.mark.parametrize("offset", range(1, 8))
+def test_range_search_on_a_view(offset):
+    """Build keys that start 4 to 28 bytes past a 32-byte boundary: the
+    kernel's sectors follow the column's own alignment."""
+    keys, probe = range_case("uniform", "cuda")
+    _range_search_equal(keys[offset:], probe)
+
+
+@pytest.mark.parametrize("dist", ["uniform", "zipf"])
+def test_range_search_at_ref_low_density(dist):
+    """1e7 x 1e7 keys: ref_low's draw (keys in [1, 1e9], 32-64 build keys
+    a bucket, the largest ~70) and a Zipf(1.0) build side over [1, 1e6],
+    whose top key fills one bucket with ~5% of the rows."""
+    g = torch.Generator(device="cuda").manual_seed(25)
+    rows = 10_000_000
+    pk = torch.randint(1, 10**9 + 1, (rows,), generator=g, device="cuda",
+                       dtype=torch.int32)
+    if dist == "zipf":
+        bk = datagen.zipf_keys(torch.Generator().manual_seed(25), rows, 1,
+                               10**6).cuda()
+        pk = pk % 10**6 + 1
+    else:
+        bk = torch.randint(1, 10**9 + 1, (rows,), generator=g,
+                           device="cuda", dtype=torch.int32)
+    params = _range_search_equal(torch.sort(bk).values, pk)
+    largest = int(params[2])
+    assert largest <= 128 if dist == "uniform" else largest > rows // 25
+
+
+def test_v1_count_launches_the_directory_and_search_once():
+    """hash_join.probe_count on the card: one tj_search_dir and one
+    tj_search_count launch, no host sync, (lo, counts) bitwise two
+    torch.searchsorted; under the profiler count.search > count.search.dir,
+    both with device time."""
+    keys, probe = range_case("uniform", "cuda")
+    ht = hash_join.build(keys)
+    entries = ("tj_search_dir", "tj_search_count")
+    before = [launches[e] for e in entries]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = hash_join.probe_count(ht, probe)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [launches[e] - b for e, b in zip(entries, before)] == [1, 1]
+    _equal(got, two_searchsorted(ht.sorted_keys, probe))
+    trace.clear()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        hash_join.probe_count(hash_join.build(keys), probe)
+        torch.cuda.synchronize()
+    recs = {r["name"]: r for r in trace.records() if r["kind"] == "span"}
+    assert recs["count.search.dir"]["parent"] == "count.search"
+    assert recs["count.search"]["parent"] == "count"
+    assert 0 < recs["count.search.dir"]["device_ms"] <= \
+        recs["count.search"]["device_ms"]
+
+
+@pytest.mark.parametrize("chunk", [None, 3001])
+def test_v1_hash_join_on_card_matches_cpu(chunk):
+    """v1's hash_join on the card at low selectivity (the count's search,
+    then the materialize's search path), in one piece and in probe chunks,
+    one directory a chunk: the CPU path's pairs in order, and the
+    oracle."""
+    rng = np.random.default_rng(26)
+    bk = rng.integers(1, 200_001, 100_000).astype(np.int32)
+    pk = rng.integers(-10, 200_011, 120_000).astype(np.int32)
+    before = launches["tj_search_dir"]
+    r, s = tpujoin_torch.hash_join(bk, pk, probe_chunk_rows=chunk)
+    chunks = 1 if chunk is None else -(-len(pk) // chunk)
+    assert launches["tj_search_dir"] == before + chunks
+    cr, cs = tpujoin_torch.hash_join(bk, pk, device="cpu",
+                                     probe_chunk_rows=chunk)
+    assert len(r) > 0
+    np.testing.assert_array_equal(r, cr)
+    np.testing.assert_array_equal(s, cs)
+    assert oracle.check_join(bk, pk, r, s) == 1
 
 
 @pytest.mark.parametrize("dom", [5, 3000, 10**9])

@@ -38,6 +38,8 @@ _SIGNATURES = {
     "tj_sort_pass": (P, P, P, P, I64, I64, P, P, I64, P),
     "tj_sort_pass_iota": (P, P, P, I64, P, P, I64, P),
     "tj_merge_count": (P, I64, P, I64, P, P, P, I64, P),
+    "tj_search_dir": (P, I64, I64, P, P, P),
+    "tj_search_count": (P, I64, P, I64, P, I64, P, P, P, P),
     "tj_compact_count": (P, I64, I64, P, P),
     "tj_compact_ids": (P, I64, I64, P, I64, P, I64, P, P),
     "tj_compact_cols": (P, I64, I64, P, P, I64, P, P, I64, P),

@@ -7,9 +7,13 @@ one contiguous [lo, lo + cnt) range of ``sorted_ids``. The sort is K1
 
 The v1 engine probes the unsorted probe keys into that table:
 
-  count:       two ``torch.searchsorted`` (left and right), as the JAX
-               package's XLA searchsorted; no Pallas kernel there, so the
-               library call is the counterpart
+  count:       on the card, one equal-range search through a directory
+               of the build keys' range (kernels/range_search.py,
+               csrc/range_search.cu): two launches, the directory and one
+               short search a probe key. On the CPU, two
+               ``torch.searchsorted`` (left and right), as the JAX
+               package's XLA searchsorted (no Pallas kernel there): the
+               kernel's twin, bitwise equal
   materialize: slot t's probe row is the last row whose exclusive-cumsum
                offset is <= t, its build position lo[row] + t - offset.
                Below m slots (low selectivity) one searchsorted of the
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from tpujoin_torch import trace
+from tpujoin_torch.kernels import _build, range_search
 from tpujoin_torch.kernels.forward_fill import LANES, fill_forward
 from tpujoin_torch.kernels.merge_sort import sort_rows
 from tpujoin_torch.utils.device import i32_columns
@@ -81,15 +86,21 @@ def probe_count(ht: HashJoinTable, probe_keys: torch.Tensor):
     """Count phase: (lo, counts), each [m] int32 in probe order: the first
     position of the probe key in the sorted build keys and its number of
     matches. The exact result size is ``counts.sum(dtype=torch.int64)``.
-    Spans ``count`` > ``count.search`` (the two searches), with device
-    time, in the table's join."""
-    pk = probe_keys
+    Spans ``count`` > ``count.search`` (the whole search), with device
+    time, in the table's join; on the card ``count.search`` >
+    ``count.search.dir`` (the directory's launch). The directory is
+    released on return."""
+    sk, pk = ht.sorted_keys, probe_keys
     with trace.span("count", pk, ht.trace_id):
         with trace.span("count.search", pk):
-            lo = torch.searchsorted(ht.sorted_keys, pk, out_int32=True)
-            hi = torch.searchsorted(ht.sorted_keys, pk, right=True,
-                                    out_int32=True)
-        counts = hi - lo
+            if _build.on_cpu(sk, pk):
+                lo = torch.searchsorted(sk, pk, out_int32=True)
+                counts = torch.searchsorted(sk, pk, right=True,
+                                            out_int32=True) - lo
+            else:
+                with trace.span("count.search.dir", pk):
+                    dir_, params = range_search.directory(sk)
+                lo, counts = range_search.search_count(sk, pk, dir_, params)
     return lo, counts
 
 
