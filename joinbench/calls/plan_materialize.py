@@ -1,6 +1,6 @@
 """The materialize layer: ``tpujoin_torch.ops.merge_join.plan_materialize``,
 the pair columns on the path it picks (expand at low selectivity: K3,
-cumsum, K4, a gather; fill at high: K5), at the capacities of the
+the offsets' cumsum, K7b; fill at high: K5), at the capacities of the
 configuration: the pairs and the matched rows rounded up to its
 multiples."""
 from __future__ import annotations

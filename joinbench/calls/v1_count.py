@@ -1,6 +1,7 @@
-"""The v1 count layer: ``tpujoin_torch.ops.hash_join.probe_count`` (two
-``torch.searchsorted`` of the unsorted probe keys into the sorted build
-keys: each probe row's first match and its number of matches, in probe
+"""The v1 count layer: ``tpujoin_torch.ops.hash_join.probe_count`` (on the
+card the equal-range search of the unsorted probe keys in the sorted
+build keys, a key-range directory and then one bounded search a probe
+key: each probe row's first match and its number of matches, in probe
 order), the int64 totals and their read to the host."""
 from __future__ import annotations
 

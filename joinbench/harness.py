@@ -2,32 +2,47 @@
 
 Everything is found by name. The cell names a configuration, whose file
 ``BENCHMARK.json`` gives, and a traffic mix, ``traffic/<name>.json``. The
-configuration names its key generator, ``keys/<distribution>.py``; the mix
-names the calls a join makes, each ``calls/<name>.py``, the size of the
-input pool and the loop; each metric is ``metrics/<name>.py``. A new
-configuration, mix, call or metric is a new file and an entry in
-``BENCHMARK.json``: no file here changes.
+configuration names its input generator, ``keys/<distribution>.py``, and
+its reference, a path from the checkout's root; the mix names the calls an
+op makes, each ``calls/<name>.py``, the size of the input pool and the
+loop; each metric is ``metrics/<name>.py``. A new configuration, mix, call
+or metric is a new file and an entry in ``BENCHMARK.json``: no file here
+changes.
+
+An op is one join, or any other operation of the program. A configuration
+for an op that is not a join brings, as new files:
+
+- its generator, with ``inputs(gen, cfg)``, the op's input columns drawn
+  on ``gen``'s device as a dict of named tensors, and ``rows(cfg)``, the
+  table rows one op reads;
+- its calls, each with ``LAYER``, ``KEEP``, ``run(op, cfg)`` (reading the
+  named inputs from ``op`` and adding its outputs to it) and, where it
+  is judged, ``LIMITS`` and ``check(kept, ref)``;
+- its reference module, with ``judge_ref(inputs)``, whose result each
+  call's ``check`` receives as ``ref``;
+- its metrics.
 
 A run (:func:`run_cell`):
 
-1. set-up: a pool of distinct (build keys, probe keys) inputs made on the
-   device from the seed, and one warm-up join on each, which builds and
-   loads the program's kernels;
-2. the window: a closed loop with one client, one join after another
+1. set-up: a pool of distinct inputs made on the device from the seed,
+   and one warm-up op on each, which builds and loads the program's
+   kernels;
+2. the window: a closed loop with one client, one op after another
    through the pool, each ending in a synchronize and its result dropped
-   before the next starts, until ``seconds`` have passed. One join, drawn
+   before the next starts, until ``seconds`` have passed. One op, drawn
    from the seed, and the last keep their outputs for the comparison;
-3. with ``trace``, CUDA events around each call of every join in the
-   window give the layers' spans; after it, two short slices of joins run
+3. with ``trace``, CUDA events around each call of every op in the
+   window give the layers' spans; after it, two short slices of ops run
    under torch.profiler, one tracing the device for its busy time, one
    tracing the host too for the breakdown;
-4. the program's state is freed and the reference judges the kept
-   outputs (``correct``).
+4. the program's state is freed and the configuration's reference judges
+   the kept outputs (``correct``).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import importlib.util
 import json
 import random
@@ -37,10 +52,11 @@ from pathlib import Path
 
 import torch
 
-from joinbench import reference, trace
+from joinbench import trace
 
 BENCH_FILE = "BENCHMARK.json"
 HERE = Path(__file__).resolve().parent
+JOIN_REFERENCE = "joinbench/reference.py"
 
 
 @dataclasses.dataclass
@@ -63,11 +79,11 @@ class Readings:
     device_name: str
     setup_s: float
     window_s: float
-    latency_s: list          # each join of the window, host clock
-    rows: list               # each join's input rows, build + probe
-    join_peak_bytes: int | None   # device memory one join needs
-    spans_ms: dict           # layer -> each join's span (trace only)
-    counters: dict           # name -> each join's count (trace only)
+    latency_s: list          # each op of the window, host clock
+    rows: list               # each op's input rows (the generator's rows)
+    join_peak_bytes: int | None   # device memory one op needs
+    spans_ms: dict           # layer -> each op's span (trace only)
+    counters: dict           # name -> each op's count (trace only)
     busy_s: float | None     # device busy in the profiled slice
     slice_s: float | None    # the profiled slice's length
 
@@ -141,26 +157,36 @@ class Device:
         return (end - start) * 1e3
 
 
-def make_pool(cell: Cell, seed: int, dev: Device) -> list:
-    """The traffic's pool of distinct (build keys, probe keys), drawn on
-    the device from ``seed``."""
-    cfg = cell.config
-    keys = load_module(HERE / "keys" / f"{cfg['distribution']}.py")
+def generator(cfg: dict):
+    """The configuration's input generator, ``keys/<distribution>.py``."""
+    return load_module(HERE / "keys" / f"{cfg['distribution']}.py")
+
+
+def load_reference(cfg: dict):
+    """The reference module the configuration names, a path from the
+    checkout's root. A configuration that names none is a join's: the
+    tiny join configurations of the program's own tests name none."""
+    path = Path(cfg.get("reference", JOIN_REFERENCE)).with_suffix("")
+    return importlib.import_module(".".join(path.parts))
+
+
+def make_pool(keys, cfg: dict, size: int, seed: int, dev: Device) -> list:
+    """A pool of ``size`` distinct inputs, each the generator's dict of
+    named columns, drawn on the device from ``seed``."""
     gen = torch.Generator(device=dev.device)
     gen.manual_seed(seed)
-    pool = [(keys.make(gen, cfg["build_rows"], cfg),
-             keys.make(gen, cfg["probe_rows"], cfg))
-            for _ in range(cell.traffic["pool"])]
+    pool = [keys.inputs(gen, cfg) for _ in range(size)]
     dev.sync()
     return pool
 
 
-def run_join(calls, cfg: dict, inputs, dev: Device, marks=None,
+def run_join(calls, cfg: dict, inputs: dict, dev: Device, marks=None,
              labels: bool = False) -> dict:
-    """One join: each call in turn, then a synchronize. ``marks`` gets a
-    span mark before each call and after the last; ``labels`` names each
-    call's host work in a profiler trace."""
-    join = {"build_keys": inputs[0], "probe_keys": inputs[1]}
+    """One op: each call in turn on a shallow copy of its inputs, then a
+    synchronize. ``marks`` gets a span mark before each call and after
+    the last; ``labels`` names each call's host work in a profiler
+    trace."""
+    join = dict(inputs)
     for call in calls:
         if marks is not None:
             marks.append(dev.mark())
@@ -270,6 +296,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     counts; ``calls`` replace the traffic's calls (the control)."""
     cell = load_cell(root, workload)
     cfg, traffic = cell.config, cell.traffic
+    keys = generator(cfg)
     if (traffic["loop"], traffic["clients"]) != ("closed", 1):
         raise ValueError("the harness drives a closed loop of one client")
     if calls is None:
@@ -277,7 +304,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
                  for c in traffic["calls"]]
     dev = Device(device)
     t_enter = time.perf_counter()
-    pool = make_pool(cell, seed, dev)
+    pool = make_pool(keys, cfg, traffic["pool"], seed, dev)
     t_pool = time.perf_counter()
     last_warm_s = warm_up(calls, cfg, pool, dev)
     # the sampled join: drawn from the seed among the first half of the
@@ -300,14 +327,14 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         prof = profile_slices(calls, cfg, pool, dev, traffic)
     readings = Readings(
         cfg, dev.name, t_start - t0, w.seconds, w.latency_s,
-        [cfg["build_rows"] + cfg["probe_rows"]] * len(w.latency_s),
+        [keys.rows(cfg)] * len(w.latency_s),
         w.join_peak_bytes, spans, {"total": w.totals, "nonzero": w.nonzeros},
         prof["busy_s"], prof["window_s"])
 
     if dev.cuda:
         torch.cuda.empty_cache()
     t_judge = time.perf_counter()
-    checks, failed = judge(calls, w.kept, pool)
+    checks, failed = judge(calls, w.kept, pool, load_reference(cfg))
     _print_window(w, time.perf_counter() - t_judge)
 
     metrics = {}
@@ -347,14 +374,13 @@ def _print_window(w: Window, judge_s: float) -> None:
           f"{w.paths}", file=sys.stderr)
 
 
-def judge(calls, kept: dict, pool: list):
-    """Each kept join's outputs against the reference on its inputs.
-    Returns each number compared, summed over the joins, beside its
-    limit, and the number of joins with a number over its limit."""
+def judge(calls, kept: dict, pool: list, reference):
+    """Each kept op's outputs against ``reference.judge_ref`` on its
+    inputs. Returns each number compared, summed over the ops, beside its
+    limit, and the number of ops with a number over its limit."""
     checks, failed = {}, 0
     for i, outputs in sorted(kept.items()):
-        build_keys, probe_keys = pool[i % len(pool)]
-        ref = reference.factorize(build_keys, probe_keys)
+        ref = reference.judge_ref(pool[i % len(pool)])
         over = False
         for call in calls:
             if not hasattr(call, "check"):

@@ -3,8 +3,9 @@
 first 8 of every 32 key values used, and each order has 1 to 7
 ``LINEITEM`` rows, drawn uniformly, each carrying its ``L_ORDERKEY``.
 
-The build side is the orders table and the probe side the lineitem table;
-:func:`make` tells them apart by ``n`` against the configuration's
+An op's inputs (:func:`inputs`) are the join's two key columns: the build
+side is the orders table and the probe side the lineitem table. :func:`make`
+draws one of them, which it tells apart by ``n`` against the configuration's
 ``build_rows`` (orders) and ``probe_rows`` (lineitems):
 
 - orders: order i's key is (i // 8) * 32 + i % 8 + 1, the rows in a
@@ -57,3 +58,15 @@ def make(gen: torch.Generator, n: int, cfg: dict) -> torch.Tensor:
         return order_keys(torch.randperm(n, generator=gen, device=gen.device))
     keys = lineitem_keys(gen, orders, n)
     return keys[torch.randperm(n, generator=gen, device=gen.device)]
+
+
+def inputs(gen: torch.Generator, cfg: dict) -> dict:
+    """One op's named input columns: the orders' keys, then the
+    lineitems', drawn in that order."""
+    return {"build_keys": make(gen, cfg["build_rows"], cfg),
+            "probe_keys": make(gen, cfg["probe_rows"], cfg)}
+
+
+def rows(cfg: dict) -> int:
+    """The table rows one op reads: both sides of the join."""
+    return cfg["build_rows"] + cfg["probe_rows"]

@@ -1,6 +1,6 @@
 """build_ms: the mean over the window's joins of the build call's span
-(hash_join.build: the ids' arange and K1's sort), from CUDA events
-recorded on the stream before and after it."""
+(hash_join.build: K1's sort, whose first pass makes the row ids), from
+CUDA events recorded on the stream before and after it."""
 import statistics
 
 

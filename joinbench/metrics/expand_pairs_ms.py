@@ -1,6 +1,6 @@
 """expand_pairs_ms: the device ms a join spends making the expand path's
-pair columns, the program's span ``pairs`` (K4, the int64 slot arithmetic,
-the gather of the sorted build ids and the two ``torch.where``), over the
+pair columns, the program's span ``pairs`` (K7b, ``expand_runs``: one
+fused expand-and-gather launch of the sorted build ids), over the
 profiled slices' joins."""
 from joinbench import spans
 

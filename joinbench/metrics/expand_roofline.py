@@ -4,7 +4,7 @@ bytes the pair columns need from a join's matched rows and pairs
 the card's peak, divided by the device ms a join of the program's spans
 ``compact``, ``offsets`` and ``pairs`` over the profiled slices' joins.
 The bytes are the function's, not the kernels', so the yardstick stays
-when K3 or K4 is fused or replaced."""
+when K3 or K7b is fused or replaced."""
 import statistics
 
 from joinbench import roofline, spans

@@ -1,8 +1,8 @@
 """host_syncs_per_join: the program's ``sync.*`` records a join, each one
-host sync inside the program's calls (the group heads' nonzero,
-``bool(fits)``, each blocking upload of a host number), over the profiled
-slices' joins. The benchmark's own read of the count's totals is not
-one."""
+host sync inside the program's calls (the group heads' nonzero, the
+materialize's checked reads of the total and the matched rows), over the
+profiled slices' joins. The benchmark's own read of the count's totals
+is not one."""
 from joinbench import spans
 
 

@@ -1,5 +1,6 @@
-"""join_rows_per_s: the input rows, build plus probe, of every join the
-window completed, over the whole window's host clock."""
+"""join_rows_per_s: the input rows of every op the window completed (the
+configuration's generator's ``rows``: build plus probe for a join), over
+the whole window's host clock."""
 
 
 def read(r):

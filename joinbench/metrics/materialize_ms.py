@@ -1,6 +1,6 @@
 """materialize_ms: the mean over the window's joins of the materialize
-call's span (merge_join.plan_materialize: K3, the cumsum, K4 and the
-gather; or the group heads and K5), from CUDA events recorded on the
+call's span (merge_join.plan_materialize: K3, the offsets' cumsum and
+K7b; or the group heads and K5), from CUDA events recorded on the
 stream before and after it."""
 import statistics
 

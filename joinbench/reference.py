@@ -10,7 +10,9 @@ probe-row order, and slot ``offs[s] + j`` is the pair
 
 It imports nothing of the program under test, takes only the keys, and
 runs on the keys' device in blocks of probe rows, so that a result of
-about 1e9 pairs can be checked beside the program's own columns.
+about 1e9 pairs can be checked beside the program's own columns. A
+configuration names it as its ``reference``; the harness calls
+:func:`judge_ref` on an op's named inputs.
 """
 from __future__ import annotations
 
@@ -56,3 +58,8 @@ def factorize(build_keys: torch.Tensor, probe_keys: torch.Tensor,
     offs = torch.cumsum(cnt, 0) - cnt
     return Factorized(order, where, lo, cnt, offs,
                       int(cnt.sum()), int((cnt > 0).sum()))
+
+
+def judge_ref(inputs: dict) -> Factorized:
+    """The join of an op's inputs ``build_keys`` and ``probe_keys``."""
+    return factorize(inputs["build_keys"], inputs["probe_keys"])

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from joinbench import control, harness, run, trace
+from one_table import CELL, add_one_table, run_copy
 from tpujoin_torch.ops import merge_join
 
 BENCH = harness.HERE
@@ -145,18 +146,15 @@ def test_new_config_mix_and_metric_are_new_files_only(tmp_path):
          "source": "host_clock", "layer": "harness",
          "moves": "join_rows_per_s", "workloads": ["tiny2.pool2"]})
     (tmp_path / harness.BENCH_FILE).write_text(json.dumps(bench))
-    script = ("import json, sys, time, torch; sys.path.insert(0, '.'); "
-              "from joinbench import harness; "
-              "print(json.dumps(harness.run_cell(harness.Path('.'), "
-              "'tiny2.pool2', 5, 0.3, True, torch.device('cpu'), "
-              "time.perf_counter())))")
-    done = subprocess.run([sys.executable, "-c", script], cwd=tmp_path,
-                          env=ENV, capture_output=True, text=True,
-                          timeout=300)
-    assert done.returncode == 0, done.stderr[-2000:]
-    out = json.loads(done.stdout.splitlines()[-1])
+    # and a configuration whose op is not a join: one table's group-by
+    add_one_table(tmp_path)
+    out = run_copy(tmp_path, "tiny2.pool2", 5, True, ROOT, join_ref=True)[
+        "out"]
     assert out["correct"] and out["metrics"]["joins_done"]["value"] > 0
-    assert not any(p.name == "joins_done.py" for p in before)
+    out = run_copy(tmp_path, CELL, 5, True, ROOT)["out"]
+    assert out["correct"] and out["metrics"]["aggregate_ms"]["value"] > 0
+    assert not any(p.name in ("joins_done.py", "agg_reference.py")
+                   for p in before)
     assert digests(tmp_path / "joinbench").items() >= before.items()
 
 

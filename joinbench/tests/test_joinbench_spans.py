@@ -6,7 +6,7 @@ import types
 
 import pytest
 
-from joinbench import harness
+from joinbench import harness, spans
 
 from tpujoin_torch import trace
 
@@ -35,8 +35,7 @@ RECORDS = [
     rec("build.ids", -1, device_ms=100.0),
 ]
 
-WANT = {"ids_ms": (0.5 + 0.4 + 0.5 + 1.4) / 2,
-        "sort_ms": (3.0 + 3.5) * 2 / 2,
+WANT = {"sort_ms": (3.0 + 3.5) * 2 / 2,
         "host_syncs_per_join": 2.0,
         "sync_wait_ms": (0.25 + 1.5 + 0.25 + 2.5) / 2,
         "import_s": 1.25,
@@ -57,12 +56,27 @@ def test_metric_reads_the_records(monkeypatch, name):
     assert read(name) == pytest.approx(WANT[name])
 
 
-@pytest.mark.parametrize("name", ["ids_ms", "sort_ms",
-                                  "host_syncs_per_join", "sync_wait_ms"])
+PER_JOIN = ["sort_ms", "host_syncs_per_join", "sync_wait_ms"]
+
+
+@pytest.mark.parametrize("name", PER_JOIN)
 def test_per_join_metric_reads_nothing_without_a_join(monkeypatch, name):
     monkeypatch.setattr(trace, "records",
                         lambda: [r for r in RECORDS if r["name"] != "build"])
     assert read(name) is None
+
+
+@pytest.mark.parametrize("records", ["all", "host_only", "no_sync"])
+def test_ops_are_the_build_records(monkeypatch, records):
+    """Every op counted has one build record, on each record set the
+    metrics are read from, and a record of id 7, which has none, counts
+    in no op."""
+    recs = {"all": RECORDS,
+            "host_only": [{**r, "device_ms": None} for r in RECORDS],
+            "no_sync": [r for r in RECORDS if r["kind"] != "sync"]}[records]
+    monkeypatch.setattr(trace, "records", lambda: recs)
+    assert spans.per_join(CARD, lambda rec: rec["name"] == "build") == 1.0
+    assert spans.per_join(CARD, lambda rec: rec["join"] == 7) == 0.0
 
 
 @pytest.mark.parametrize("name", sorted(WANT))
@@ -81,7 +95,7 @@ def test_metric_reads_nothing_off_the_card(monkeypatch, name):
 def test_device_metrics_read_nothing_without_device_time(monkeypatch):
     host_only = [{**r, "device_ms": None} for r in RECORDS]
     monkeypatch.setattr(trace, "records", lambda: host_only)
-    assert read("ids_ms") is None and read("sort_ms") is None
+    assert read("sort_ms") is None
     assert read("host_syncs_per_join") == WANT["host_syncs_per_join"]
 
 
